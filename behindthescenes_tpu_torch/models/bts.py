@@ -1,0 +1,255 @@
+"""BTSNet: the pixel-aligned density field (counterpart of
+behindthescenes_tpu/models/bts.py:38-60, 112-121, 183-300, 443-626).
+
+This slice of the port holds the self-view depth path: `encode` of the
+keyframe and the dense self-view density queries, deterministic (one
+camera-z ladder shared by every ray) and jittered (per-ray samples).
+Feature maps keep the JAX layout (n, nv, h, w, c).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from behindthescenes_tpu_torch import geometry
+from behindthescenes_tpu_torch.models.encoder import make_backbone
+from behindthescenes_tpu_torch.models.mlp import ResnetFC, make_mlp
+from behindthescenes_tpu_torch.ops.grid_sample import resample_uniform_lattice
+from behindthescenes_tpu_torch.ops.kernels.selfview import softplus
+from behindthescenes_tpu_torch.ops.posenc import PositionalEncoding
+
+EPS = 1e-3
+
+
+@dataclasses.dataclass
+class FeatureGrid:
+    """What the queries need about the encoded views."""
+    features: Tuple[torch.Tensor, ...]     # per scale: (n, nv_e, h, w, c)
+    f_ks: torch.Tensor                     # (n, nv_e, 3, 3)
+    f_poses_w2c: torch.Tensor              # (n, nv_e, 4, 4)
+    color_imgs: torch.Tensor               # (n, nv_r, h, w, 3) in [0, 1]
+    c_ks: torch.Tensor                     # (n, nv_r, 3, 3)
+    c_poses_w2c: torch.Tensor              # (n, nv_r, 4, 4)
+
+
+def _nearest_resize(x, h, w):
+    """Nearest-neighbor resize of an NHWC batch (F.interpolate
+    mode='nearest': index = floor(i * scale))."""
+    n, h0, w0, c = x.shape
+    if (h0, w0) == (h, w):
+        return x
+    ys = (torch.arange(h, device=x.device) * (h0 / h)).long()
+    xs = (torch.arange(w, device=x.device) * (w0 / w)).long()
+    return x[:, ys][:, :, xs]
+
+
+def _linspace(n: int, dtype, device) -> torch.Tensor:
+    """linspace(-1, 1, n) rounded in `dtype` as jnp.linspace rounds it
+    (each operation in `dtype`). In bf16 torch.linspace differs from it
+    by up to 1.2e-2 at n = 640, which the x/y code's top octave (48 rad
+    per unit) turns into a different static input."""
+    div = torch.tensor(n - 1, dtype=dtype, device=device)
+    step = torch.arange(n - 1, dtype=dtype, device=device) / div
+    return torch.cat([-(1 - step) + step,
+                      torch.ones(1, dtype=dtype, device=device)])
+
+
+def pixel_lattice(h: int, w: int, dtype, device) -> torch.Tensor:
+    """(h*w, 2) NDC pixel coordinates, x fastest: the projection of every
+    sample on a ray cast from the encoder camera."""
+    xs = _linspace(w, dtype, device)
+    ys = _linspace(h, dtype, device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    return torch.stack([gx.reshape(-1), gy.reshape(-1)], -1)
+
+
+class BTSNet(nn.Module):
+    """Density-field model (reference models_bts.py:17-338); the config
+    mirrors the reference's `model_conf` block."""
+
+    def __init__(self, z_near: float, z_far: float, encoder_conf: dict,
+                 code_conf: dict, mlp_coarse_conf: dict,
+                 mlp_fine_conf: Optional[dict] = None,
+                 learn_empty: bool = True, inv_z: bool = True,
+                 code_mode: str = "z", sample_color: bool = True,
+                 compute_dtype=torch.float32):
+        super().__init__()
+        if code_mode not in ("z", "distance"):
+            raise NotImplementedError(code_mode)
+        self.z_near, self.z_far = z_near, z_far
+        self.inv_z = inv_z
+        self.code_mode = code_mode
+        self.sample_color = sample_color
+        self.compute_dtype = compute_dtype
+        self.encoder = make_backbone(dict(encoder_conf), compute_dtype)
+        self.code_xyz = PositionalEncoding.from_conf(dict(code_conf), d_in=3)
+        d_in = self.encoder.latent_size + self.code_xyz.d_out
+        d_out = 1 if sample_color else 4
+        mlp_dtype = None if compute_dtype == torch.float32 else compute_dtype
+        self.mlp_coarse = make_mlp(dict(mlp_coarse_conf), d_in, d_out,
+                                   dtype=mlp_dtype)
+        self.mlp_fine = make_mlp(dict(mlp_fine_conf or {"type": "empty"}),
+                                 d_in, d_out, allow_empty=True,
+                                 dtype=mlp_dtype)
+        if learn_empty:
+            self.empty_feature = nn.Parameter(
+                torch.randn(self.encoder.latent_size))
+        # BatchNorm reads its running statistics, as the JAX encode does by
+        # default (train=False); this slice of the port is inference only.
+        self.eval()
+
+    @classmethod
+    def from_conf(cls, conf: dict, compute_dtype=torch.float32) -> "BTSNet":
+        return cls(z_near=conf["z_near"], z_far=conf["z_far"],
+                   encoder_conf=dict(conf["encoder"]),
+                   code_conf=dict(conf.get("code", {})),
+                   mlp_coarse_conf=dict(conf["mlp_coarse"]),
+                   mlp_fine_conf=dict(conf.get("mlp_fine",
+                                               {"type": "empty"})),
+                   learn_empty=conf.get("learn_empty", True),
+                   inv_z=conf.get("inv_z", True),
+                   code_mode=conf.get("code_mode", "z"),
+                   sample_color=conf.get("sample_color", True),
+                   compute_dtype=compute_dtype)
+
+    # ------------------------------------------------------------ encode
+    def encode(self, images, ks, poses_c2w, ids_encoder=None,
+               ids_render=None) -> FeatureGrid:
+        """Run the CNN over the selected views and build the feature grid.
+
+        images (n, v, h, w, 3) in [-1, 1]; ks (n, v, 3, 3) NDC intrinsics;
+        poses_c2w (n, v, 4, 4). No flip augmentation and no corner packing
+        in this slice."""
+        n, v, h, w, _ = images.shape
+        poses_w2c = geometry.invert_pose(poses_c2w)
+        ids_encoder = list(range(v)) if ids_encoder is None \
+            else list(ids_encoder)
+        ids_render = list(range(v)) if ids_render is None \
+            else list(ids_render)
+        nv = len(ids_encoder)
+        imgs = images[:, ids_encoder].reshape(n * nv, h, w, 3)
+        latents = self.encoder(imgs.permute(0, 3, 1, 2))        # NCHW
+        h0, w0 = latents[0].shape[2:]
+        c = self.encoder.latent_size
+        feats = tuple(
+            _nearest_resize(lat.permute(0, 2, 3, 1), h0, w0)
+            .reshape(n, nv, h0, w0, c).to(self.compute_dtype)
+            for lat in latents)
+        return FeatureGrid(
+            features=feats, f_ks=ks[:, ids_encoder],
+            f_poses_w2c=poses_w2c[:, ids_encoder],
+            color_imgs=(images * 0.5 + 0.5)[:, ids_render],
+            c_ks=ks[:, ids_render], c_poses_w2c=poses_w2c[:, ids_render])
+
+    # ----------------------------------------------------------- queries
+    def _mlp(self, coarse: bool):
+        return self.mlp_coarse if (coarse or self.mlp_fine is None) \
+            else self.mlp_fine
+
+    def code_coord(self, coord):
+        """Depth (z or distance) -> the normalized code input in [-1, 1]."""
+        if self.inv_z:
+            coord = ((1.0 / torch.clamp_min(coord, EPS) - 1.0 / self.z_far)
+                     / (1.0 / self.z_near - 1.0 / self.z_far))
+        else:
+            coord = (coord - self.z_near) / (self.z_far - self.z_near)
+        return 2.0 * coord - 1.0
+
+    def _density(self, out):
+        return softplus(out) if self.sample_color else torch.relu(out)
+
+    def selfview_static(self, grid: FeatureGrid, scale: int = 0,
+                        out_hw=None):
+        """Per-ray static inputs of the self-view decode: the lattice xy
+        (hw, 2), the MLP's static input [features, xy code] (hw, c + cxy)
+        and the lin_in rows of the static and the z-code inputs."""
+        feature_map = grid.features[scale]
+        n, nv, fh, fw, c = feature_map.shape
+        if n != 1:
+            raise ValueError("the self-view path is per-image (n == 1)")
+        h, w = out_hw if out_hw is not None else (fh, fw)
+        xy = pixel_lattice(h, w, feature_map.dtype, feature_map.device)
+        # One bilinear resample per frame onto the render lattice.
+        feats = resample_uniform_lattice(feature_map[0, 0], (h, w)) \
+            .reshape(h * w, c)
+        pe = self.code_xyz
+        x_static = torch.cat([feats, pe.subset((0, 1))(xy)], dim=-1)
+        rows_static = list(range(c)) + [c + r for r in pe.subset_rows((0, 1))]
+        rows_dyn = [c + r for r in pe.subset_rows((2,))]
+        return xy, x_static, rows_static, rows_dyn
+
+    def query_selfview_density_shared_z(self, grid: FeatureGrid, z_cam,
+                                        coarse: bool = True, scale: int = 0,
+                                        out_hw=None):
+        """Deterministic self-view density: one camera-z ladder z_cam (K,)
+        shared by every ray, so the z-code half of lin_in is a (K, H)
+        table and the decode tail is the shared_z kernel.
+        Returns sigma (1, hw, K)."""
+        if self.code_mode != "z":
+            raise ValueError("the shared-z path needs code_mode == 'z'")
+        mlp = self._mlp(coarse)
+        if not isinstance(mlp, ResnetFC):
+            raise TypeError("the shared-z path needs a ResnetFC")
+        _, x_static, rows_static, rows_dyn = self.selfview_static(
+            grid, scale, out_hw)
+        code_z = self.code_xyz.subset((2,))(self.code_coord(z_cam)[:, None])
+        out = mlp.call_split_shared(x_static, code_z, rows_static, rows_dyn)
+        return self._density(out[..., 0])[None]
+
+    def selfview_coord(self, grid: FeatureGrid, xy, z_samp):
+        """Per-sample code input (hw, K) of rays through the lattice xy
+        with distances z_samp (hw, K) along the unit ray."""
+        k_mat = grid.f_ks[0, 0]
+        xy = xy.to(k_mat.dtype)     # the lattice may be bf16; rays are f32
+        dirs = torch.stack([(xy[:, 0] - k_mat[0, 2]) / k_mat[0, 0],
+                            (xy[:, 1] - k_mat[1, 2]) / k_mat[1, 1],
+                            torch.ones_like(xy[:, 0])], -1)
+        if self.code_mode == "z":
+            # Camera z of a sample: the unit ray's z component is 1/|dir|.
+            coord = z_samp * (1.0 / torch.linalg.norm(dirs, dim=-1))[:, None]
+        else:
+            coord = z_samp
+        return self.code_coord(coord)
+
+    def query_selfview_density(self, grid: FeatureGrid, z_samp,
+                               coarse: bool = True, scale: int = 0,
+                               out_hw=None):
+        """Density along rays cast FROM the encoder camera, each sampled at
+        its own distances z_samp (hw, K): every sample projects back to its
+        own pixel, so only the z code varies along a ray.
+
+        ResnetFC with no blocks decodes in the jitter_density kernel (bf16
+        compute) or the selfview kernel (f32); other ResnetFCs take
+        `call_split`, other MLPs the generic full-input path.
+        Returns sigma (1, hw, K)."""
+        xy, x_static, rows_static, rows_dyn = self.selfview_static(
+            grid, scale, out_hw)
+        coord = self.selfview_coord(grid, xy, z_samp)
+        hw, k = z_samp.shape
+        mlp = self._mlp(coarse)
+        pe = self.code_xyz
+        if isinstance(mlp, ResnetFC):
+            dt = mlp.dtype or x_static.dtype
+            fused = mlp.fusable() and pe.include_input
+            kw = dict(n_freqs=pe.num_freqs, freq_factor=pe.freq_factor)
+            if fused and dt == torch.bfloat16:
+                out = mlp.call_split_jitter(x_static, coord, rows_static,
+                                            rows_dyn, **kw)
+                return self._density(out)[None]
+            if fused and dt == torch.float32 and self.sample_color:
+                return mlp.call_split_selfview(x_static, coord, rows_static,
+                                               rows_dyn, **kw)[None]
+            code_z = pe.subset((2,))(coord[..., None])         # (hw, K, 13)
+            out = mlp.call_split(x_static, code_z, rows_static, rows_dyn)
+            return self._density(out[..., 0])[None]
+        c = grid.features[scale].shape[-1]
+        xyz = torch.cat([xy[:, None, :].expand(hw, k, 2).to(coord.dtype),
+                         coord[..., None]], dim=-1)
+        mlp_in = torch.cat([x_static[:, None, :c].expand(hw, k, c)
+                            .to(coord.dtype), self.code_xyz(xyz)], dim=-1)
+        out = mlp(mlp_in.reshape(1, hw * k, -1), combine_inner_dims=(hw * k,))
+        return self._density(out[..., 0].reshape(1, hw, k))

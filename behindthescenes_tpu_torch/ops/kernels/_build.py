@@ -1,0 +1,126 @@
+"""Build the port's CUDA kernels once, at first use, load and call them.
+
+Every `csrc/*.cu` goes through ONE nvcc call into one shared library with a
+plain C interface, loaded with ctypes (no PyTorch headers, so the build
+takes seconds, not minutes). The library lands in `_build/` inside the
+package, named by a hash of the sources and flags, so a second run loads
+what the first one built. Nothing here runs at import time: the CPU tests
+import every module of the port on a machine without nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+CUDA_ROOTS = ("/usr/local/cuda",)   # searched after $CUDA_HOME, before PATH
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of every exported launcher: pointers and the stream as
+# c_void_p (a bare Python int would be cut to 32 bits), sizes as c_int.
+# Each returns cudaGetLastError() after its launch.
+SIGNATURES = {
+    "bts_shared_z_tail": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "bts_jitter_density": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                           _P],
+    "bts_selfview_density": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _F, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), *CUDA_ROOTS):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA "
+                           "kernels build only on a machine with the CUDA "
+                           "toolkit")
+    return found
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile every csrc/*.cu into _build/ unless this exact build is
+    there already. Returns the library's path; raises with nvcc's stderr
+    if the build fails."""
+    out = os.path.join(BUILD_DIR, f"libbts_kernels_{source_hash()}.so")
+    if os.path.exists(out):
+        return out
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+           *[s for s in sources() if s.endswith(".cu")]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.bts_error_string.argtypes = [ctypes.c_int]
+            lib.bts_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launcher reported a CUDA error."""
+    if err != 0:
+        text = library().bts_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: {text} ({err})")
+
+
+def require(t, name: str, dtype, shape, device) -> None:
+    """Raise unless `t` is a contiguous tensor of this dtype and shape on
+    this device: the kernels take raw pointers and no strides."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
