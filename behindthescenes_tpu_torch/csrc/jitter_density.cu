@@ -18,107 +18,262 @@
 // What bounds it on an H100: the function must read c (B*K f32) and
 // h_static (B*H bf16) and write the logits (B*K f32): 79 MB at the
 // flagship's B = 122,880, K = 64, H = 64, about 24 us at 3.35 TB/s. Its
-// 15.3 GFLOP would take 15 us on the bf16 tensor cores, so the bound is
-// the bytes. Written as plain tensors, the (B, K, 13) code and the
-// (B, K, H) hidden reach device memory (about 1.4 GB).
+// operations, each at its type's peak, weigh about as much: the products
+// (14.1 GFLOP) take 14 us on the bf16 tensor cores, the bf16 add and relu
+// (1.0 GFLOP) 7.5 us at the 134 TFLOP/s of bf16 outside the tensor cores,
+// the code (0.2 GFLOP) 3 us in f32: 25 us, so the bound is the
+// operations. What the card actually spends is instruction throughput on
+// the CUDA cores: the 6 precise sincosf of each sample and the bf16
+// elementwise chain of each (sample, hidden unit).
 //
-// Design (simple first): one block per tile of 32 rays; the tile's
-// h_static rows and the small weights (W_d, b_in, w_out) sit in shared
-// memory as f32 copies of their bf16 values. Threads run over the tile's
-// (ray, sample) pairs with k fastest, so coord loads and logit stores are
-// coalesced and each shared-memory read is a broadcast. Each thread builds
-// its 13-value code in registers and loops over H on the f32 CUDA cores:
-// neither the code nor the hidden leaves registers. The products run on
-// CUDA cores, not tensor cores, so the kernel sits far from its byte
-// bound; wgmma tiles are later work.
+// Design: both products run on the tensor cores, as the TPU kernel ran
+// them on the MXU, with mma.sync m16n8k16 (bf16 in, f32 sums) from
+// registers. The hidden width is a template parameter, built for H = 32
+// and H = 64 (the widths of the shipped configs whose decoder fuses).
+// One warp decodes one ray at a time, in tiles of 16 samples, so h_static
+// is the same for every row of a tile; rows past K in a last partial tile
+// read c = 0 and store nothing (the bounds checks cost no time measured at
+// K = 64 against an unmasked copy of the step for full pairs of tiles,
+// whose extra code made ptxas spill). It takes the tiles two at a time,
+// so that one tile's trig and mma latencies overlap the other's (a last
+// odd tile goes alone).
+//  - A = the code, 16 samples x 16 columns, built in registers directly in
+//    the A-fragment layout. Lane (g = lane / 4, t = lane % 4) holds rows
+//    g and g + 8 and columns 2t, 2t+1, 2t+8, 2t+9. Lanes t = 0, 1, 2 put
+//    sin and cos of octaves 2t and 2t+1 there (4 sincosf per lane per
+//    tile, no lane repeats another's trig); lanes t = 3 put c in column 6
+//    and zeros in 7, 14, 15. W_d's rows are permuted to this column order
+//    on the host (ops/kernels/jitter_density.py::mma_code_columns).
+//  - B = W_d, 16 x H bf16: H / 8 n = 8 tiles held in registers for the
+//    warp's lifetime.
+//  - Epilogue on each f32 accumulator fragment: round to bf16x2, + h_static
+//    and + b_in in bf16x2 (each rounded), relu. The packed m16n8 results
+//    of two neighbouring n-tiles are exactly the A fragment of the next
+//    m16n8k16, so four more mma against w_out (an n = 8 B tile with only
+//    column 0 non-zero) give the density column, summed in f32.
+//  - Column 0 of that result lives in lanes t = 0; two shuffles gather a
+//    tile's 16 logits into lanes 0-15, which store 64 contiguous bytes.
+// Warps walk the rays grid-stride, with as many blocks as are resident.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRays = 32;
+constexpr int kNF = 6;              // octaves of the z code
+constexpr int kTile = 16;           // samples per mma tile (rows of A)
+constexpr int kWarps = 4;           // warps per block
+constexpr unsigned kFull = 0xffffffffu;
 
-template <int NF>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two floats rounded to bf16, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return bits(__floats2bfloat162_rn(lo, hi));
+}
+
+// Two bf16 values from memory, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return bits(__halves2bfloat162(lo, hi));
+}
+
+// d += a . b on the tensor cores: a 16x16 bf16 (row), b 16x8 bf16 (col),
+// d 16x8 f32, in the fragment layouts of the PTX ISA for m16n8k16.
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Weights and per-ray values a lane holds in registers (see the kernel),
+// for hidden width kH: kNT n = 8 tiles of the hidden product, kKC k = 16
+// chunks of the projection.
+template <int kH>
+struct LaneWeights {
+  static constexpr int kNT = kH / 8;
+  static constexpr int kKC = kH / 16;
+  uint32_t bw[kNT][2];          // B fragments of W_d
+  uint32_t bo[kKC][2];          // B fragments of the projection (w_out)
+  __nv_bfloat162 bin2[kNT];     // b_in at the lane's accumulator columns
+  __nv_bfloat162 hs2[kNT];      // h_static of the current ray, likewise
+};
+
+// Decodes kT tiles of 16 samples of one ray, starting at sample k0: their
+// trig and products are independent, so the warp overlaps their latencies.
+// Samples at K and past it are decoded from c = 0 and not stored.
+template <int kH, int kT>
+__device__ __forceinline__ void decode_tiles(const LaneWeights<kH>& w,
+                                             const float* crow, float* orow,
+                                             int k0, int K, int lane,
+                                             float f_lo, float f_hi,
+                                             float bias) {
+  constexpr int kKC = LaneWeights<kH>::kKC;
+  const int g = lane >> 2, t = lane & 3;
+  // A fragments of the code: rows g (sample k0 + 16u + g) and g + 8.
+  float c[kT][2];
+#pragma unroll
+  for (int u = 0; u < kT; ++u) {
+    const int k = k0 + kTile * u + g;
+    c[u][0] = k < K ? __ldg(crow + k) : 0.0f;
+    c[u][1] = k + 8 < K ? __ldg(crow + k + 8) : 0.0f;
+  }
+  uint32_t a[kT][4];
+#pragma unroll
+  for (int u = 0; u < kT; ++u) {
+    if (t < 3) {
+      float s00, c00, s10, c10, s01, c01, s11, c11;
+      sincosf(c[u][0] * f_lo, &s00, &c00);
+      sincosf(c[u][1] * f_lo, &s10, &c10);
+      sincosf(c[u][0] * f_hi, &s01, &c01);
+      sincosf(c[u][1] * f_hi, &s11, &c11);
+      a[u][0] = pack_bf16(s00, c00);   // row g,     columns 2t, 2t+1
+      a[u][1] = pack_bf16(s10, c10);   // row g + 8, columns 2t, 2t+1
+      a[u][2] = pack_bf16(s01, c01);   // row g,     columns 2t+8, 2t+9
+      a[u][3] = pack_bf16(s11, c11);   // row g + 8, columns 2t+8, 2t+9
+    } else {
+      a[u][0] = pack_bf16(c[u][0], 0.0f);   // column 6 = c, 7 = pad
+      a[u][1] = pack_bf16(c[u][1], 0.0f);
+      a[u][2] = 0u;                         // columns 14, 15: pad
+      a[u][3] = 0u;
+    }
+  }
+  __syncwarp();                             // mma.sync needs the whole warp
+  const __nv_bfloat162 zero2 = __float2bfloat162_rn(0.0f);
+  float o[kT][4];
+#pragma unroll
+  for (int u = 0; u < kT; ++u) o[u][0] = o[u][1] = o[u][2] = o[u][3] = 0.0f;
+#pragma unroll
+  for (int kc = 0; kc < kKC; ++kc) {
+#pragma unroll
+    for (int u = 0; u < kT; ++u) {
+      // Hidden units 16 kc .. 16 kc + 15: n-tiles 2 kc and 2 kc + 1.
+      uint32_t x[4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int nt = 2 * kc + half;
+        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_bf16(d, a[u], w.bw[nt][0], w.bw[nt][1]);
+        __nv_bfloat162 lo = __floats2bfloat162_rn(d[0], d[1]);   // row g
+        __nv_bfloat162 hi = __floats2bfloat162_rn(d[2], d[3]);   // g + 8
+        lo = __hmax2(__hadd2(__hadd2(w.hs2[nt], lo), w.bin2[nt]), zero2);
+        hi = __hmax2(__hadd2(__hadd2(w.hs2[nt], hi), w.bin2[nt]), zero2);
+        x[2 * half] = bits(lo);
+        x[2 * half + 1] = bits(hi);
+      }
+      mma_bf16(o[u], x, w.bo[kc][0], w.bo[kc][1]);
+    }
+  }
+  // Column 0: rows g in o[0], rows g + 8 in o[2] of lanes t = 0.
+#pragma unroll
+  for (int u = 0; u < kT; ++u) {
+    const float v_lo = __shfl_sync(kFull, o[u][0], (lane & 7) * 4);
+    const float v_hi = __shfl_sync(kFull, o[u][2], (lane & 7) * 4);
+    const int k = k0 + kTile * u + lane;
+    if (lane < kTile && k < K)
+      orow[k] = bf16_round(lane < 8 ? v_lo : v_hi) + bias;
+  }
+}
+
+template <int kH>
+__global__ void __launch_bounds__(kWarps * 32)
 jitter_density_kernel(const float* __restrict__ coord,
                       const __nv_bfloat16* __restrict__ hs,
                       const __nv_bfloat16* __restrict__ wd,
                       const __nv_bfloat16* __restrict__ b_in,
                       const __nv_bfloat16* __restrict__ w_out,
                       const float* __restrict__ b_out,
-                      float* __restrict__ out, int B, int K, int H,
+                      float* __restrict__ out, int B, int K,
                       float freq_factor) {
-  constexpr int NC = 1 + 2 * NF;
-  extern __shared__ float smem[];
-  float* hs_s = smem;                 // kRays x H
-  float* wd_s = hs_s + kRays * H;     // NC x H, interleaved code order
-  float* bin_s = wd_s + NC * H;       // H
-  float* wout_s = bin_s + H;          // H
-  const int tid = threadIdx.x;
-  const int b0 = blockIdx.x * kRays;
-  const int n_rays = min(kRays, B - b0);
-
-  for (int i = tid; i < n_rays * H; i += kThreads)
-    hs_s[i] = __bfloat162float(hs[(size_t)b0 * H + i]);
-  for (int i = tid; i < NC * H; i += kThreads)
-    wd_s[i] = __bfloat162float(wd[i]);
-  for (int j = tid; j < H; j += kThreads) {
-    bin_s[j] = __bfloat162float(b_in[j]);
-    wout_s[j] = __bfloat162float(w_out[j]);
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  constexpr int kNT = LaneWeights<kH>::kNT;
+  constexpr int kKC = LaneWeights<kH>::kKC;
+  LaneWeights<kH> w;
+  // B fragments of W_d (16 x kH, rows in the code's column order): rows
+  // 2t, 2t+1 and 2t+8, 2t+9 of column nt * 8 + g.
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int n = nt * 8 + g;
+    w.bw[nt][0] = pack_bf16(wd[(2 * t) * kH + n], wd[(2 * t + 1) * kH + n]);
+    w.bw[nt][1] = pack_bf16(wd[(2 * t + 8) * kH + n],
+                            wd[(2 * t + 9) * kH + n]);
   }
-  __syncthreads();
-
+  // B fragments of the projection: w_out in column 0 (lanes g = 0).
+#pragma unroll
+  for (int kc = 0; kc < kKC; ++kc) {
+    const int j = kc * 16 + 2 * t;
+    w.bo[kc][0] = g == 0 ? pack_bf16(w_out[j], w_out[j + 1]) : 0u;
+    w.bo[kc][1] = g == 0 ? pack_bf16(w_out[j + 8], w_out[j + 9]) : 0u;
+  }
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
+    w.bin2[nt] = *reinterpret_cast<const __nv_bfloat162*>(b_in + nt * 8 +
+                                                           2 * t);
   const float bias = *b_out;
-  for (int p = tid; p < n_rays * K; p += kThreads) {
-    const int r = p / K;
-    const size_t idx = (size_t)b0 * K + p;
-    const float c = coord[idx];
-    float code[NC];
-    code[0] = bf16_round(c);
+  // This lane's two octaves (lanes t = 3 hold c and the pad columns).
+  const float f_lo = freq_factor * (float)(1 << (2 * t));
+  const float f_hi = freq_factor * (float)(1 << (2 * t + 1));
+
+  const int n_warps = gridDim.x * kWarps;
+  for (int ray = blockIdx.x * kWarps + (threadIdx.x >> 5); ray < B;
+       ray += n_warps) {
+    const __nv_bfloat16* hrow = hs + (size_t)ray * kH;
 #pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      float s, co;
-      sincosf(c * (freq_factor * (float)(1 << f)), &s, &co);
-      code[1 + 2 * f] = bf16_round(s);
-      code[2 + 2 * f] = bf16_round(co);
-    }
-    const float* hrow = hs_s + r * H;
-    float acc = 0.0f;
-    for (int j = 0; j < H; ++j) {
-      float hd = 0.0f;
-#pragma unroll
-      for (int i = 0; i < NC; ++i) hd = fmaf(code[i], wd_s[i * H + j], hd);
-      float x = bf16_round(hrow[j] + bf16_round(hd));
-      x = bf16_round(x + bin_s[j]);
-      acc = fmaf(fmaxf(x, 0.0f), wout_s[j], acc);
-    }
-    out[idx] = bf16_round(acc) + bias;
+    for (int nt = 0; nt < kNT; ++nt)
+      w.hs2[nt] = *reinterpret_cast<const __nv_bfloat162*>(hrow + nt * 8 +
+                                                           2 * t);
+    const float* crow = coord + (size_t)ray * K;
+    float* orow = out + (size_t)ray * K;
+    int k0 = 0;
+    for (; k0 + kTile < K; k0 += 2 * kTile)
+      decode_tiles<kH, 2>(w, crow, orow, k0, K, lane, f_lo, f_hi, bias);
+    if (k0 < K)
+      decode_tiles<kH, 1>(w, crow, orow, k0, K, lane, f_lo, f_hi, bias);
   }
+}
+
+template <int kH>
+cudaError_t launch(const void* coord, const void* hs, const void* wd,
+                   const void* b_in, const void* w_out, const void* b_out,
+                   void* out, int B, int K, float freq_factor,
+                   cudaStream_t stream) {
+  int blocks = 0;
+  const cudaError_t err =
+      resident_blocks(jitter_density_kernel<kH>, kWarps * 32, 0,
+                      ((long long)B + kWarps - 1) / kWarps, &blocks);
+  if (err != cudaSuccess) return err;
+  jitter_density_kernel<kH><<<blocks, kWarps * 32, 0, stream>>>(
+      (const float*)coord, (const __nv_bfloat16*)hs,
+      (const __nv_bfloat16*)wd, (const __nv_bfloat16*)b_in,
+      (const __nv_bfloat16*)w_out, (const float*)b_out, (float*)out, B, K,
+      freq_factor);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-static size_t jitter_density_smem(int H, int n_freqs) {
-  return (size_t)(kRays * H + (1 + 2 * n_freqs) * H + 2 * H) * sizeof(float);
-}
-
-// coord (B, K) f32; hs (B, H) bf16; wd (1 + 2F, H) bf16 in interleaved code
-// order; b_in, w_out (H,) bf16; b_out (1,) f32; out (B, K) f32. All
-// contiguous on the device. Only F = 6 is built; other F return
-// cudaErrorInvalidValue. Returns cudaGetLastError() after the launch.
+// coord (B, K) f32; hs (B, H) bf16; wd (16, H) bf16, W_d's rows in the
+// kernel's code column order with zero pad rows; b_in, w_out (H,) bf16;
+// b_out (1,) f32; out (B, K) f32. All contiguous on the device, h_static
+// rows and b_in 4-byte aligned. Built for H = 32 and 64 and F = 6, any K;
+// other shapes return cudaErrorInvalidValue (the wrapper raises before).
+// Returns cudaGetLastError() after the launch.
 BTS_EXPORT int bts_jitter_density(const void* coord, const void* hs,
                                   const void* wd, const void* b_in,
                                   const void* w_out, const void* b_out,
                                   void* out, int B, int K, int H, int n_freqs,
                                   float freq_factor, void* stream) {
-  if (n_freqs != 6) return (int)cudaErrorInvalidValue;
-  const size_t smem = jitter_density_smem(H, n_freqs);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  jitter_density_kernel<6><<<(B + kRays - 1) / kRays, kThreads, smem,
-                             (cudaStream_t)stream>>>(
-      (const float*)coord, (const __nv_bfloat16*)hs,
-      (const __nv_bfloat16*)wd, (const __nv_bfloat16*)b_in,
-      (const __nv_bfloat16*)w_out, (const float*)b_out, (float*)out, B, K, H,
-      freq_factor);
-  return (int)cudaGetLastError();
+  if (n_freqs != kNF || B <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (H == 64)
+    return (int)launch<64>(coord, hs, wd, b_in, w_out, b_out, out, B, K,
+                           freq_factor, s);
+  if (H == 32)
+    return (int)launch<32>(coord, hs, wd, b_in, w_out, b_out, out, B, K,
+                           freq_factor, s);
+  return (int)cudaErrorInvalidValue;
 }

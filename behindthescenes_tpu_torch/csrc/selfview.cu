@@ -14,108 +14,164 @@
 // f32) and write sigma (B*K f32): 94 MB at the flagship's B = 122,880,
 // K = 64, H = 64, 28 us at 3.35 TB/s. Its 15.3 GFLOP in exact f32 run on
 // the CUDA cores (no TF32: the reference is exact f32), 228 us at
-// 67 TFLOP/s, so it is bound by operations.
+// 67 TFLOP/s, so it is bound by operations: about 13 * 64 fused
+// multiply-adds per sample, plus 6 sincosf.
 //
-// Design: as the bf16 kernel (jitter_density.cu) — one block per tile of
-// 32 rays, h_static rows and the small weights in shared memory, threads
-// over (ray, sample) pairs with k fastest, the code and the hidden in
-// registers only, f32 sums over the 13 code dims and then over H (in four
-// interleaved partial sums).
+// Design: register tiling on the CUDA cores with the hidden width a
+// template parameter, built for H = 32 and H = 64 (the widths of the
+// shipped configs whose decoder fuses), so the loops over H unroll and the
+// weight reads vectorise: with one sample per thread and H a runtime value,
+// every multiply-add pays its own shared-memory load, and an SM serves one
+// warp-wide load per clock against four warp-wide FMAs. Each thread decodes
+// kS = 4 consecutive samples of one ray: c comes in as one float4 and sigma
+// goes out as one float4; the thread walks H in chunks of 4 and reads
+// W_z[i][j..j+3] as one float4 from shared memory, which feeds 4 * kS
+// multiply-adds (one 16-byte broadcast load per 16 FMAs); the walk over H
+// unrolls fully, so every shared-memory offset is an immediate (faster on
+// the H100 than unrolling by 2). h_static + b_in starts each FMA chain.
+// Each output keeps four interleaved partial sums over j (j mod 4), added
+// pairwise at the end, which holds its rounding near one ulp of the
+// float64 value. Threads walk the (ray, group of kS samples) space
+// grid-stride, with as many blocks as are resident, so the weights are
+// staged in shared memory once per block.
 #include "common.cuh"
 
 namespace {
 
+constexpr int kNF = 6;              // octaves of the z code
+constexpr int kNC = 1 + 2 * kNF;    // code dims
+constexpr int kS = 4;               // consecutive samples per thread
 constexpr int kThreads = 256;
-constexpr int kRays = 32;
 
-template <int NF>
-__global__ void __launch_bounds__(kThreads)
+template <int kH>
+__global__ void __launch_bounds__(kThreads, 2)
 selfview_density_kernel(const float* __restrict__ hs,
                         const float* __restrict__ coord,
                         const float* __restrict__ wz,
                         const float* __restrict__ b_in,
                         const float* __restrict__ w_out,
                         const float* __restrict__ b_out,
-                        float* __restrict__ sigma, int B, int K, int H,
-                        float freq_factor) {
-  constexpr int NC = 1 + 2 * NF;
-  extern __shared__ float smem[];
-  float* hs_s = smem;                 // kRays x H
-  float* wz_s = hs_s + kRays * H;     // NC x H, grouped code order
-  float* bin_s = wz_s + NC * H;       // H
-  float* wout_s = bin_s + H;          // H
-  const int tid = threadIdx.x;
-  const int b0 = blockIdx.x * kRays;
-  const int n_rays = min(kRays, B - b0);
-
-  for (int i = tid; i < n_rays * H; i += kThreads)
-    hs_s[i] = hs[(size_t)b0 * H + i];
-  for (int i = tid; i < NC * H; i += kThreads) wz_s[i] = wz[i];
-  for (int j = tid; j < H; j += kThreads) {
+                        float* __restrict__ sigma, long long n_groups,
+                        int groups_per_ray, float freq_factor) {
+  __shared__ __align__(16) float wz_s[kNC * kH];   // grouped code order
+  __shared__ __align__(16) float bin_s[kH];
+  __shared__ __align__(16) float wout_s[kH];
+  for (int i = threadIdx.x; i < kNC * kH; i += kThreads) wz_s[i] = wz[i];
+  for (int j = threadIdx.x; j < kH; j += kThreads) {
     bin_s[j] = b_in[j];
     wout_s[j] = w_out[j];
   }
   __syncthreads();
+  const float4* wz4 = reinterpret_cast<const float4*>(wz_s);
+  const float4* bin4 = reinterpret_cast<const float4*>(bin_s);
+  const float4* wout4 = reinterpret_cast<const float4*>(wout_s);
 
   const float bias = *b_out;
-  for (int p = tid; p < n_rays * K; p += kThreads) {
-    const int r = p / K;
-    const size_t idx = (size_t)b0 * K + p;
-    const float c = coord[idx];
-    float code[NC];
-    code[0] = c;
+  for (long long grp = (long long)blockIdx.x * kThreads + threadIdx.x;
+       grp < n_groups; grp += (long long)gridDim.x * kThreads) {
+    const long long ray = grp / groups_per_ray;
+    // K = kS * groups_per_ray, so the group's samples start at kS * grp.
+    const float4 c4 = __ldg(reinterpret_cast<const float4*>(coord) + grp);
+    const float c[kS] = {c4.x, c4.y, c4.z, c4.w};
+    float code[kS][kNC];
 #pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      float s, co;
-      sincosf(c * (freq_factor * (float)(1 << f)), &s, &co);
-      code[1 + f] = s;
-      code[1 + NF + f] = co;
-    }
-    const float* hrow = hs_s + r * H;
-    // Four interleaved partial sums over H (j mod 4), added pairwise:
-    // the rounding of the projection stays near one ulp.
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int j0 = 0; j0 < H; j0 += 4) {
+    for (int s = 0; s < kS; ++s) {
+      code[s][0] = c[s];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int j = j0 + q;
-        if (j < H) {
-          float h = 0.0f;
-#pragma unroll
-          for (int i = 0; i < NC; ++i) h = fmaf(code[i], wz_s[i * H + j], h);
-          acc[q] = fmaf(fmaxf(h + hrow[j] + bin_s[j], 0.0f), wout_s[j],
-                        acc[q]);
-        }
+      for (int f = 0; f < kNF; ++f) {
+        float sn, cs;
+        sincosf(c[s] * (freq_factor * (float)(1 << f)), &sn, &cs);
+        code[s][1 + f] = sn;
+        code[s][1 + kNF + f] = cs;
       }
     }
-    sigma[idx] = softplus_f32(((acc[0] + acc[1]) + (acc[2] + acc[3]))
-                              + bias);
+    const float4* hrow = reinterpret_cast<const float4*>(hs + ray * kH);
+    float acc[kS][4];
+#pragma unroll
+    for (int s = 0; s < kS; ++s)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[s][q] = 0.0f;
+#pragma unroll
+    for (int jc = 0; jc < kH / 4; ++jc) {
+      const float4 h4 = __ldg(hrow + jc);
+      const float4 bi = bin4[jc];
+      const float base[4] = {h4.x + bi.x, h4.y + bi.y, h4.z + bi.z,
+                             h4.w + bi.w};
+      float h[kS][4];
+#pragma unroll
+      for (int s = 0; s < kS; ++s)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) h[s][q] = base[q];
+#pragma unroll
+      for (int i = 0; i < kNC; ++i) {
+        const float4 w = wz4[i * (kH / 4) + jc];
+#pragma unroll
+        for (int s = 0; s < kS; ++s) {
+          h[s][0] = fmaf(code[s][i], w.x, h[s][0]);
+          h[s][1] = fmaf(code[s][i], w.y, h[s][1]);
+          h[s][2] = fmaf(code[s][i], w.z, h[s][2]);
+          h[s][3] = fmaf(code[s][i], w.w, h[s][3]);
+        }
+      }
+      const float4 wo = wout4[jc];
+#pragma unroll
+      for (int s = 0; s < kS; ++s) {
+        acc[s][0] = fmaf(fmaxf(h[s][0], 0.0f), wo.x, acc[s][0]);
+        acc[s][1] = fmaf(fmaxf(h[s][1], 0.0f), wo.y, acc[s][1]);
+        acc[s][2] = fmaf(fmaxf(h[s][2], 0.0f), wo.z, acc[s][2]);
+        acc[s][3] = fmaf(fmaxf(h[s][3], 0.0f), wo.w, acc[s][3]);
+      }
+    }
+    float o[kS];
+#pragma unroll
+    for (int s = 0; s < kS; ++s)
+      o[s] = softplus_f32(((acc[s][0] + acc[s][1]) + (acc[s][2] + acc[s][3]))
+                          + bias);
+    reinterpret_cast<float4*>(sigma)[grp] = make_float4(o[0], o[1], o[2],
+                                                        o[3]);
   }
+}
+
+template <int kH>
+cudaError_t launch(const void* hs, const void* coord, const void* wz,
+                   const void* b_in, const void* w_out, const void* b_out,
+                   void* sigma, int B, int K, float freq_factor,
+                   cudaStream_t stream) {
+  const long long n_groups = (long long)B * (K / kS);
+  int blocks = 0;
+  const cudaError_t err =
+      resident_blocks(selfview_density_kernel<kH>, kThreads, 0,
+                      (n_groups + kThreads - 1) / kThreads, &blocks);
+  if (err != cudaSuccess) return err;
+  selfview_density_kernel<kH><<<blocks, kThreads, 0, stream>>>(
+      (const float*)hs, (const float*)coord, (const float*)wz,
+      (const float*)b_in, (const float*)w_out, (const float*)b_out,
+      (float*)sigma, n_groups, K / kS, freq_factor);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-static size_t selfview_density_smem(int H, int n_freqs) {
-  return (size_t)(kRays * H + (1 + 2 * n_freqs) * H + 2 * H) * sizeof(float);
-}
-
 // hs (B, H) f32; coord (B, K) f32; wz (1 + 2F, H) f32 in grouped code order;
 // b_in, w_out (H,) f32; b_out (1,) f32; sigma (B, K) f32. All contiguous on
-// the device. Only F = 6 is built; other F return cudaErrorInvalidValue.
-// Returns cudaGetLastError() after the launch.
+// the device, h_static and coord 16-byte aligned. Built for H = 32 and 64
+// and F = 6 with K a multiple of 4; other shapes return
+// cudaErrorInvalidValue (the wrapper raises before). Returns
+// cudaGetLastError() after the launch.
 BTS_EXPORT int bts_selfview_density(const void* hs, const void* coord,
                                     const void* wz, const void* b_in,
                                     const void* w_out, const void* b_out,
                                     void* sigma, int B, int K, int H,
                                     int n_freqs, float freq_factor,
                                     void* stream) {
-  if (n_freqs != 6) return (int)cudaErrorInvalidValue;
-  const size_t smem = selfview_density_smem(H, n_freqs);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  selfview_density_kernel<6><<<(B + kRays - 1) / kRays, kThreads, smem,
-                               (cudaStream_t)stream>>>(
-      (const float*)hs, (const float*)coord, (const float*)wz,
-      (const float*)b_in, (const float*)w_out, (const float*)b_out,
-      (float*)sigma, B, K, H, freq_factor);
-  return (int)cudaGetLastError();
+  if (n_freqs != kNF || K % kS != 0 || B <= 0 || K <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (H == 64)
+    return (int)launch<64>(hs, coord, wz, b_in, w_out, b_out, sigma, B, K,
+                           freq_factor, s);
+  if (H == 32)
+    return (int)launch<32>(hs, coord, wz, b_in, w_out, b_out, sigma, B, K,
+                           freq_factor, s);
+  return (int)cudaErrorInvalidValue;
 }

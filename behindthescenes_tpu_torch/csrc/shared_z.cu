@@ -1,5 +1,8 @@
 // Deterministic self-view decode tail:
 //   out[b, k] = sum_j w[j] * relu(hs[b, j] + hd[k, j]) + b_out
+// in f32, or with hs and hd in bf16: then hs + hd rounds to bf16 before the
+// relu, as shared_z_tail_jnp adds two bf16 arrays (the JAX package's default
+// evaluation runs at bf16), and the projection sums in f32.
 //
 // Replaces the Pallas kernel behindthescenes_tpu/ops/pallas/shared_z.py
 // (shared_z_tail -> _tail_pallas, body _kernel at :41-50). hs (B, H) is the
@@ -20,7 +23,12 @@
 // consecutive outputs, and every hs read is a broadcast); each thread
 // keeps 8 rays' accumulators in registers and loops over H. Each output
 // sums in f32 over four interleaved chains (j mod 4) added pairwise at the
-// end, which keeps its rounding near one ulp.
+// end, which keeps its rounding near one ulp. The bf16 variant reads half the
+// bytes of hs and hd and keeps them in shared memory as f32 copies of their
+// bf16 values; the f32 sum of two bf16 values rounded to bf16 is the bf16
+// sum (the f32 sum is exact unless the exponents differ by more than 16).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -32,9 +40,14 @@ constexpr int kSlots = kThreads / kLanes;        // ray slots per block pass
 constexpr int kRaysPerThread = kRays / kSlots;   // rays per thread
 constexpr int kParts = 4;                        // partial sums per output
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-shared_z_tail_kernel(const float* __restrict__ hs,
-                     const float* __restrict__ hd,
+shared_z_tail_kernel(const T* __restrict__ hs, const T* __restrict__ hd,
                      const float* __restrict__ w,
                      const float* __restrict__ b_out,
                      float* __restrict__ out, int B, int K, int H) {
@@ -47,13 +60,13 @@ shared_z_tail_kernel(const float* __restrict__ hs,
 
   for (int i = tid; i < kRays * H; i += kThreads) {
     const int b = b0 + i / H;
-    hs_s[i] = b < B ? hs[(size_t)b0 * H + i] : 0.0f;
+    hs_s[i] = b < B ? to_f32(hs[(size_t)b0 * H + i]) : 0.0f;
   }
   // Transpose while loading: consecutive threads write consecutive smem
   // words (no bank conflicts); the strided reads hit the 16 KB table in L1.
   for (int i = tid; i < H * K; i += kThreads) {
     const int j = i / K, k = i % K;
-    hdT_s[i] = hd[k * H + j];
+    hdT_s[i] = to_f32(hd[k * H + j]);
   }
   for (int j = tid; j < H; j += kThreads) w_s[j] = w[j];
   __syncthreads();
@@ -78,8 +91,9 @@ shared_z_tail_kernel(const float* __restrict__ hs,
           const float wj = w_s[j];
 #pragma unroll
           for (int i = 0; i < kRaysPerThread; ++i) {
-            const float x =
-                fmaxf(hs_s[(slot + i * kSlots) * H + j] + d, 0.0f);
+            float x = hs_s[(slot + i * kSlots) * H + j] + d;
+            if constexpr (!std::is_same_v<T, float>) x = bf16_round(x);
+            x = fmaxf(x, 0.0f);
             acc[i][q] = fmaf(wj, x, acc[i][q]);
           }
         }
@@ -101,18 +115,34 @@ static size_t shared_z_tail_smem(int K, int H) {
   return (size_t)(kRays * H + H * K + H) * sizeof(float);
 }
 
+template <typename T>
+static int launch_shared_z_tail(const void* hs, const void* hd, const void* w,
+                                const void* b_out, void* out, int B, int K,
+                                int H, void* stream) {
+  const size_t smem = shared_z_tail_smem(K, H);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  shared_z_tail_kernel<T><<<(B + kRays - 1) / kRays, kThreads, smem,
+                            (cudaStream_t)stream>>>(
+      (const T*)hs, (const T*)hd, (const float*)w, (const float*)b_out,
+      (float*)out, B, K, H);
+  return (int)cudaGetLastError();
+}
+
 // hs (B, H), hd (K, H), w (H,), b_out (1,), out (B, K): f32, contiguous,
 // on the device. Returns cudaGetLastError() after the launch.
 BTS_EXPORT int bts_shared_z_tail(const void* hs, const void* hd,
                                  const void* w, const void* b_out, void* out,
                                  int B, int K, int H, void* stream) {
-  const size_t smem = shared_z_tail_smem(K, H);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  shared_z_tail_kernel<<<(B + kRays - 1) / kRays, kThreads, smem,
-                         (cudaStream_t)stream>>>(
-      (const float*)hs, (const float*)hd, (const float*)w,
-      (const float*)b_out, (float*)out, B, K, H);
-  return (int)cudaGetLastError();
+  return launch_shared_z_tail<float>(hs, hd, w, b_out, out, B, K, H, stream);
+}
+
+// As bts_shared_z_tail with hs and hd in bf16 (w, b_out and out stay f32).
+BTS_EXPORT int bts_shared_z_tail_bf16(const void* hs, const void* hd,
+                                      const void* w, const void* b_out,
+                                      void* out, int B, int K, int H,
+                                      void* stream) {
+  return launch_shared_z_tail<__nv_bfloat16>(hs, hd, w, b_out, out, B, K, H,
+                                             stream);
 }
 
 BTS_EXPORT const char* bts_error_string(int err) {

@@ -15,9 +15,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from behindthescenes_tpu_torch.ops.kernels.jitter_density import (
-    interleave_to_grouped, jitter_density)
-from behindthescenes_tpu_torch.ops.kernels.selfview import selfview_density
+from behindthescenes_tpu_torch.ops.kernels.jitter_density import \
+    jitter_density
+from behindthescenes_tpu_torch.ops.kernels.selfview import (
+    grouped_code_weights, selfview_density)
 from behindthescenes_tpu_torch.ops.kernels.shared_z import shared_z_tail
 
 
@@ -140,9 +141,10 @@ class ResnetFC(nn.Module):
         w_s, w_d, bias = self.split_lin_in(rows_static, rows_dynamic)
         h_static = self.static_hidden(x_static, w_s).contiguous()
         w_out, b_out = self.density_column()
-        return jitter_density(coord.float().contiguous(), h_static, w_d,
-                              bias, w_out, b_out, n_freqs=n_freqs,
-                              freq_factor=freq_factor)
+        bf = torch.bfloat16
+        return jitter_density(coord.float().contiguous(), h_static,
+                              w_d.to(bf), bias.to(bf), w_out.to(bf), b_out,
+                              n_freqs=n_freqs, freq_factor=freq_factor)
 
     def call_split_selfview(self, x_static, coord, rows_static, rows_dynamic,
                             *, n_freqs: int, freq_factor: float):
@@ -151,12 +153,11 @@ class ResnetFC(nn.Module):
         assert self.fusable()
         w_s, w_d, bias = self.split_lin_in(rows_static, rows_dynamic)
         h_static = self.static_hidden(x_static, w_s).float().contiguous()
-        perm = torch.as_tensor(interleave_to_grouped(n_freqs),
-                               device=w_d.device)
         w_out, b_out = self.density_column()
         return selfview_density(h_static, coord.float().contiguous(),
-                                w_d[perm].contiguous(), bias, w_out, b_out,
-                                n_freqs=n_freqs, freq_factor=freq_factor)
+                                grouped_code_weights(w_d, n_freqs), bias,
+                                w_out, b_out, n_freqs=n_freqs,
+                                freq_factor=freq_factor)
 
     def call_split_shared(self, x_static, x_dynamic_shared, rows_static,
                           rows_dynamic):
@@ -169,8 +170,7 @@ class ResnetFC(nn.Module):
         h_dyn = x_dynamic_shared.to(dt) @ w_d.to(dt) + bias.to(dt)  # (K, H)
         if self.fusable() and self.d_out == 1:
             w_out, b_out = self.density_column()
-            out = shared_z_tail(h_static.float().contiguous(),
-                                h_dyn.float().contiguous(),
+            out = shared_z_tail(h_static.contiguous(), h_dyn.contiguous(),
                                 w_out.to(dt).float(), b_out)
             return out[..., None]
         return self._tail(h_static[:, None, :] + h_dyn[None, :, :])

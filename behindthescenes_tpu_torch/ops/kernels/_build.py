@@ -13,6 +13,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -22,8 +23,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 CUDA_ROOTS = ("/usr/local/cuda",)   # searched after $CUDA_HOME, before PATH
+# -Xptxas -v: ptxas reports each kernel's registers, stack and spills;
+# `build` keeps the report beside the library (`ptxas_report` reads it).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +36,7 @@ _F = ctypes.c_float
 # Each returns cudaGetLastError() after its launch.
 SIGNATURES = {
     "bts_shared_z_tail": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "bts_shared_z_tail_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "bts_jitter_density": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                            _P],
     "bts_selfview_density": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -69,11 +73,16 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def library_path() -> str:
+    return os.path.join(BUILD_DIR, f"libbts_kernels_{source_hash()}.so")
+
+
 def build() -> str:
     """Compile every csrc/*.cu into _build/ unless this exact build is
-    there already. Returns the library's path; raises with nvcc's stderr
-    if the build fails."""
-    out = os.path.join(BUILD_DIR, f"libbts_kernels_{source_hash()}.so")
+    there already, and keep ptxas's report in `<library>.ptxas.txt`.
+    Returns the library's path; raises with nvcc's stderr if the build
+    fails."""
+    out = library_path()
     if os.path.exists(out):
         return out
     nvcc = _nvcc()
@@ -85,8 +94,41 @@ def build() -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): "
                            f"{' '.join(cmd)}\n{proc.stderr}")
+    with open(f"{out}.ptxas.txt", "w") as f:
+        f.write(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PROPS = re.compile(r"Function properties for (\w+)")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def parse_ptxas(text: str) -> dict:
+    """ptxas -v output -> {mangled kernel name: {"registers", "stack",
+    "spill_stores", "spill_loads"}} (bytes, per thread)."""
+    report, name, props = {}, None, None
+    for line in text.splitlines():
+        if m := _ENTRY.search(line):
+            name = m.group(1)
+            report[name] = {}
+        elif m := _PROPS.search(line):
+            props = m.group(1)
+        elif (m := _FRAME.search(line)) and props in report:
+            report[props].update(zip(("stack", "spill_stores",
+                                      "spill_loads"), map(int, m.groups())))
+        elif name and (m := _REGS.search(line)):
+            report[name]["registers"] = int(m.group(1))
+    return report
+
+
+def ptxas_report() -> dict:
+    """`parse_ptxas` of the report the current build kept."""
+    with open(f"{library_path()}.ptxas.txt") as f:
+        return parse_ptxas(f.read())
 
 
 def library() -> ctypes.CDLL:
@@ -112,9 +154,35 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed: {text} ({err})")
 
 
-def require(t, name: str, dtype, shape, device) -> None:
+# What the two jittered decode kernels are built for: the hidden widths and
+# the octave count of the shipped configs whose decoder fuses (a ResnetFC
+# with no blocks).
+DECODE_H = (32, 64)
+DECODE_N_FREQS = 6
+
+
+def check_decode_shapes(k: int, h: int, n_freqs: int, k_multiple: int,
+                        name: str) -> None:
+    """Raise unless a jittered decode kernel takes K samples per ray of
+    width H with n_freqs octaves: H in DECODE_H, 6 octaves, K a multiple
+    of `k_multiple`. Pure Python, called before any build or launch."""
+    if h not in DECODE_H:
+        raise ValueError(f"{name}: H={h}, the CUDA kernel is built for H in "
+                         f"{DECODE_H}, the widths of the shipped configs "
+                         "whose decoder fuses")
+    if n_freqs != DECODE_N_FREQS:
+        raise ValueError(f"{name}: n_freqs={n_freqs}, the CUDA kernel is "
+                         f"built for {DECODE_N_FREQS} octaves, as every "
+                         "shipped config uses")
+    if k % k_multiple != 0:
+        raise ValueError(f"{name}: K={k}, the CUDA kernel takes samples in "
+                         f"groups of {k_multiple}")
+
+
+def require(t, name: str, dtype, shape, device, align: int = 1) -> None:
     """Raise unless `t` is a contiguous tensor of this dtype and shape on
-    this device: the kernels take raw pointers and no strides."""
+    this device, its data `align`-byte aligned: the kernels take raw
+    pointers and no strides."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -124,3 +192,5 @@ def require(t, name: str, dtype, shape, device) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data not {align}-byte aligned")

@@ -8,18 +8,52 @@ materializes the (B, K, 13) code and the (B, K, H) hidden).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from behindthescenes_tpu_torch.ops.kernels import _build
 
+# The kernel's code columns: the k dimension of its m16n8k16 products.
+CODE_COLUMNS = 16
 
-def interleave_to_grouped(n_freqs: int) -> np.ndarray:
-    """Row permutation taking the PositionalEncoding layout
-    [id, sin f1, cos f1, sin f2, cos f2, ...] to the grouped
-    [id, sin f1..fF, cos f1..fF]."""
-    return np.concatenate([[0], 1 + 2 * np.arange(n_freqs),
-                           2 + 2 * np.arange(n_freqs)]).astype(np.int64)
+
+def mma_code_columns() -> np.ndarray:
+    """For each of the kernel's 16 code columns, the row of the interleaved
+    code (6 octaves) it holds, or -1 for a zero pad column. Lane t of a
+    quad holds columns 2t, 2t+1, 2t+8, 2t+9: lanes t = 0, 1, 2 sin and cos
+    of octaves 2t and 2t+1, lane 3 the input c in column 6 and the three
+    pad columns."""
+    cols = np.full(CODE_COLUMNS, -1, np.int64)
+    for t in range(3):
+        for octave, col in ((2 * t, 2 * t), (2 * t + 1, 2 * t + 8)):
+            cols[col] = 1 + 2 * octave          # sin
+            cols[col + 1] = 2 + 2 * octave      # cos
+    cols[6] = 0                                 # the input c itself
+    return cols
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_rows(device: torch.device) -> torch.Tensor:
+    """`mma_code_columns` on `device`, pads pointing at the zero row 13."""
+    cols = mma_code_columns()
+    n_code = 1 + 2 * _build.DECODE_N_FREQS
+    return torch.as_tensor(np.where(cols >= 0, cols, n_code), device=device)
+
+
+def pack_code_weights(w_d):
+    """W_d (13, H) in the interleaved code order -> (16, H) with its rows
+    in the kernel's code column order and zero rows at the pad columns
+    (two small launches on the card; the row index stays there)."""
+    return F.pad(w_d, (0, 0, 0, 1))[_packed_rows(w_d.device)]
+
+
+def check_shapes(k: int, h: int, n_freqs: int) -> None:
+    """Raise unless the CUDA kernel takes these shapes: H in
+    `_build.DECODE_H`, 6 octaves (any K, any number of rays)."""
+    _build.check_decode_shapes(k, h, n_freqs, 1, "jitter_density")
 
 
 def jitter_density_plain(coord, h_static, w_d, b_in, w_out, b_out, *,
@@ -43,23 +77,22 @@ def jitter_density_plain(coord, h_static, w_d, b_in, w_out, b_out, *,
 def jitter_density(coord, h_static, w_d, b_in, w_out, b_out, *,
                    n_freqs: int, freq_factor: float):
     """Fused density logits for per-ray z codes (same arguments as
-    `jitter_density_plain`; h_static in bf16 on the card, the small
-    weights are rounded to bf16 here)."""
+    `jitter_density_plain`; on the card h_static, w_d, b_in and w_out come
+    in bf16, as the plain version rounds them)."""
     if coord.device.type == "cpu":
         return jitter_density_plain(coord, h_static, w_d, b_in, w_out, b_out,
                                     n_freqs=n_freqs, freq_factor=freq_factor)
-    if n_freqs != 6:
-        raise ValueError(f"n_freqs={n_freqs}: the CUDA kernel is built for "
-                         "6 octaves, as every shipped config uses")
     b, k = coord.shape
     h = h_static.shape[1]
+    check_shapes(k, h, n_freqs)
     dev = coord.device
     bf = torch.bfloat16
-    w_d, b_in, w_out = (t.to(bf).contiguous() for t in (w_d, b_in, w_out))
-    _build.require(coord, "coord", torch.float32, (b, k), dev)
-    _build.require(h_static, "h_static", bf, (b, h), dev)
     _build.require(w_d, "w_d", bf, (1 + 2 * n_freqs, h), dev)
-    _build.require(b_in, "b_in", bf, (h,), dev)
+    w_pack = pack_code_weights(w_d)
+    _build.require(coord, "coord", torch.float32, (b, k), dev)
+    # bf16x2 loads of h_static rows and b_in
+    _build.require(h_static, "h_static", bf, (b, h), dev, align=4)
+    _build.require(b_in, "b_in", bf, (h,), dev, align=4)
     _build.require(w_out, "w_out", bf, (h,), dev)
     _build.require(b_out, "b_out", torch.float32, (1,), dev)
     out = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -68,7 +101,7 @@ def jitter_density(coord, h_static, w_d, b_in, w_out, b_out, *,
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.bts_jitter_density(
-            coord.data_ptr(), h_static.data_ptr(), w_d.data_ptr(),
+            coord.data_ptr(), h_static.data_ptr(), w_pack.data_ptr(),
             b_in.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
             out.data_ptr(), b, k, h, n_freqs, float(freq_factor),
             torch.cuda.current_stream().cuda_stream)

@@ -7,10 +7,42 @@ same function written as plain tensors.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from behindthescenes_tpu_torch.ops.kernels import _build
+
+# The kernel takes K in groups of this many consecutive samples per thread
+# (one float4 of coord).
+KERNEL_SAMPLES = 4
+
+
+def interleave_to_grouped(n_freqs: int) -> np.ndarray:
+    """Row permutation taking the PositionalEncoding layout
+    [id, sin f1, cos f1, sin f2, cos f2, ...] to the grouped
+    [id, sin f1..fF, cos f1..fF]."""
+    return np.concatenate([[0], 1 + 2 * np.arange(n_freqs),
+                           2 + 2 * np.arange(n_freqs)]).astype(np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _grouped_rows(n_freqs: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(interleave_to_grouped(n_freqs), device=device)
+
+
+def grouped_code_weights(w_d, n_freqs: int):
+    """W_d (13, H) in the interleaved code order -> W_z (13, H) in the
+    grouped order [c, sin f1..fF, cos f1..fF], contiguous: the kernel
+    reads W_z[i][j..j+3] as one float4."""
+    return w_d[_grouped_rows(n_freqs, w_d.device)].contiguous()
+
+
+def check_shapes(k: int, h: int, n_freqs: int) -> None:
+    """Raise unless the CUDA kernel takes these shapes: H in
+    `_build.DECODE_H`, 6 octaves, K a multiple of 4 (any number of rays)."""
+    _build.check_decode_shapes(k, h, n_freqs, KERNEL_SAMPLES, "selfview")
 
 
 def softplus(x):
@@ -38,15 +70,14 @@ def selfview_density(h_static, coord, w_z, b_in, w_out, b_out, *,
         return selfview_density_plain(h_static, coord, w_z, b_in, w_out,
                                       b_out, n_freqs=n_freqs,
                                       freq_factor=freq_factor)
-    if n_freqs != 6:
-        raise ValueError(f"n_freqs={n_freqs}: the CUDA kernel is built for "
-                         "6 octaves, as every shipped config uses")
     b, k = coord.shape
     h = h_static.shape[1]
+    check_shapes(k, h, n_freqs)
     dev = coord.device
     f32 = torch.float32
-    _build.require(h_static, "h_static", f32, (b, h), dev)
-    _build.require(coord, "coord", f32, (b, k), dev)
+    # float4 loads of h_static rows and coord groups
+    _build.require(h_static, "h_static", f32, (b, h), dev, align=16)
+    _build.require(coord, "coord", f32, (b, k), dev, align=16)
     _build.require(w_z, "w_z", f32, (1 + 2 * n_freqs, h), dev)
     _build.require(b_in, "b_in", f32, (h,), dev)
     _build.require(w_out, "w_out", f32, (h,), dev)

@@ -6,11 +6,13 @@
 Builds the port's CUDA kernels from csrc/, serves single-image depth of the
 flagship ResNet-50 model (media/weights/flagship_fast_conv.npz) at 192x640
 with 64 samples on the 4 synthetic scenes of the JAX package's depth gate
-(tests/test_train_fast_gate.py), deterministic, jittered f32 and jittered
-bf16, and holds the depth metrics to that gate's bounds. Shows through the
-launch counters that serving went through every kernel, holds each kernel
-against its plain PyTorch version on the flagship activations of one frame,
-and times kernels, plain versions and whole frames with CUDA events.
+(tests/test_train_fast_gate.py) in four modes: deterministic f32,
+deterministic bf16 (the JAX package's default evaluation), jittered f32 and
+jittered bf16; holds the depth metrics to that gate's bounds. Shows through
+the launch counters that serving went through every kernel, holds each
+kernel against its plain PyTorch version on the flagship activations of one
+frame of each mode and on ragged shapes, and times kernels, plain versions
+and whole frames with CUDA events.
 
 Prints one progress line per phase (flushed, with the phase's seconds),
 then a JSON line of frame times and metrics, one JSON line with a record
@@ -32,24 +34,52 @@ N_SCENES = 4
 # The flagship depth gate's bounds (tests/test_train_fast_gate.py:34-35).
 ABS_REL_MAX = 0.24
 A1_MIN = 0.49
+# Serving modes: (mode, bf16 compute, jitter, kernel wrapper, record).
+# A record is one kernel on one mode's arguments; shared_z serves both
+# deterministic modes, in f32 and with bf16 inputs.
+MODES = (("deterministic f32", False, False, "shared_z", "shared_z"),
+         ("deterministic bf16", True, False, "shared_z", "shared_z_bf16"),
+         ("jittered f32", False, True, "selfview", "selfview"),
+         ("jittered bf16", True, True, "jitter_density", "jitter_density"))
 # Kernel vs plain version (atol, rtol): the JAX package's kernel tests
 # (test_pallas_shared_z.py:36, test_pallas_selfview.py:31,
-# test_pallas_jitter.py).
-TOLERANCE = {"shared_z": (1e-5, 0.0), "selfview": (3e-5, 0.0),
-             "jitter_density": (2e-2, 2e-2)}
-# H100 SXM peaks at 700 W (NVIDIA data sheet, dense): HBM bytes/s, f32
-# FLOP/s on the CUDA cores, bf16 FLOP/s on the tensor cores.
+# test_pallas_jitter.py). The f32 kernels and the bf16 shared_z are held
+# against their plain version evaluated in float64 on the same inputs
+# (bf16 inputs stay bf16, so hs + hd rounds where the kernel rounds it and
+# only the f32 sum is left to differ); jitter_density against its plain
+# version as it runs, bf16 rounding at the same places.
+TOLERANCE = {"shared_z": (1e-5, 0.0), "shared_z_bf16": (1e-5, 0.0),
+             "selfview": (3e-5, 0.0), "jitter_density": (2e-2, 2e-2)}
+# The ragged checks: rays of one frame cut to a number that is no multiple
+# of the kernels' blocks of rays (4 warps, 256 threads), with (H, K) cuts
+# at both widths the decode kernels are built for, each leaving
+# jitter_density a partial last step: K = 44 ends in one partial tile of
+# 16, K = 24 (exp_synthetic's samples at its H = 32) in a pair.
+RAGGED_B = 1001
+RAGGED_HK = ((64, 44), (32, 24))
+# H100 SXM peaks at 700 W (NVIDIA data sheet and H100 architecture white
+# paper, dense): HBM bytes/s, f32 FLOP/s and bf16 FLOP/s on the CUDA cores,
+# bf16 FLOP/s on the tensor cores.
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+BF16_VEC_FLOP_S = 133.8e12
 BF16_FLOP_S = 989e12
 KERNEL_META = {
     "shared_z": ("behindthescenes_tpu_torch/csrc/shared_z.cu",
                  "behindthescenes_tpu/ops/pallas/shared_z.py:62"),
+    "shared_z_bf16": ("behindthescenes_tpu_torch/csrc/shared_z.cu",
+                      "behindthescenes_tpu/ops/pallas/shared_z.py:62"),
     "jitter_density": ("behindthescenes_tpu_torch/csrc/jitter_density.cu",
                        "behindthescenes_tpu/ops/pallas/jitter_density.py:196"),
     "selfview": ("behindthescenes_tpu_torch/csrc/selfview.cu",
                  "behindthescenes_tpu/ops/pallas/selfview.py:78"),
 }
+# Each record's kernel in ptxas's report: a piece of its mangled name (the
+# decode kernels at the served H = 64).
+PTXAS_NAME = {"shared_z": "shared_z_tail_kernelIfE",
+              "shared_z_bf16": "shared_z_tail_kernelI13__nv_bfloat16E",
+              "selfview": "selfview_density_kernelILi64E",
+              "jitter_density": "jitter_density_kernelILi64E"}
 
 _T0 = time.perf_counter()
 
@@ -93,51 +123,74 @@ def check_metrics(mode: str, means: dict) -> None:
 
 @contextlib.contextmanager
 def recorded_kernel_args():
-    """Records the arguments of the last call of each kernel wrapper that
-    the serving path makes (models/mlp.py calls the wrappers by name), so
-    that the kernels are checked and timed on the very inputs serving
-    gives them. Yields {kernel name: (args, kwargs)}."""
+    """Records, per serving mode, the arguments of the last call of each
+    kernel wrapper that the serving path makes (models/mlp.py calls the
+    wrappers by name), so that the kernels are checked and timed on the
+    very inputs serving gives them. Yields ({mode: {kernel name: (args,
+    kwargs)}}, state); the caller sets state["mode"] before each mode."""
     from behindthescenes_tpu_torch.models import mlp
     from behindthescenes_tpu_torch.ops import kernels
-    record, saved = {}, {}
+    record, saved, state = {}, {}, {"mode": None}
     for name, fn in kernels.KERNELS.items():
         if getattr(mlp, fn.__name__) is not fn:
             raise AssertionError(f"models/mlp.py no longer calls the "
                                  f"{name} wrapper by name")
 
         def recorder(*args, _name=name, _fn=fn, **kwargs):
-            record[_name] = (args, kwargs)
+            record.setdefault(state["mode"], {})[_name] = (args, kwargs)
             return _fn(*args, **kwargs)
         saved[fn.__name__] = fn
         setattr(mlp, fn.__name__, recorder)
     try:
-        yield record
+        yield record, state
     finally:
         for attr, fn in saved.items():
             setattr(mlp, attr, fn)
 
 
+def ragged(kernel: str, args, h: int, k: int):
+    """A decode kernel's arguments cut to RAGGED_B rays, k samples and the
+    first h hidden units."""
+    args = list(args)
+    hs_arg, coord_arg = (0, 1) if kernel == "selfview" else (1, 0)
+    args[hs_arg] = args[hs_arg][:RAGGED_B, :h].contiguous()
+    args[coord_arg] = args[coord_arg][:RAGGED_B, :k].contiguous()
+    # W_d or W_z (13, H), b_in and w_out (H,); b_out stays
+    args[2:5] = [w if w.shape[-1] == h else w[..., :h].contiguous()
+                 for w in args[2:5]]
+    return tuple(args)
+
+
 def work(name: str, args, kwargs):
-    """(bytes the kernel must move, FLOP, peak FLOP/s of their type) of one
-    call with these arguments: each input read once, each output written
-    once; the decode's FLOP per sample are `kernel_cost` of
+    """(bytes the kernel must move, {peak FLOP/s: FLOP of that type}) of
+    one call with these arguments: each input read once, each output
+    written once; each operation at the peak of its type. The decodes'
+    FLOP per sample are `kernel_cost` of
     behindthescenes_tpu/ops/pallas/jitter_density.py:69-90."""
-    if name == "shared_z":
+    if name.startswith("shared_z"):
         hs, hd = args[0], args[1]
         (b, h), k = hs.shape, hd.shape[0]
-        return 4 * (b * h + k * h + h + 1 + b * k), 4 * b * k * h, F32_FLOP_S
+        nbytes = hs.element_size() * (b * h + k * h) + 4 * (h + 1 + b * k)
+        if name == "shared_z":
+            return nbytes, {F32_FLOP_S: 4 * b * k * h}
+        # bf16 add and relu, then the f32 multiply-add of the projection
+        return nbytes, {BF16_VEC_FLOP_S: 2 * b * k * h,
+                        F32_FLOP_S: 2 * b * k * h}
     if name == "selfview":
         h_static, coord = args[0], args[1]
     else:
         coord, h_static = args[0], args[1]
     (b, k), h = coord.shape, h_static.shape[1]
     n_code = 1 + 2 * kwargs["n_freqs"]
-    flop = b * k * (2 * n_code + 2 * n_code * h + 4 * h)
+    code, products, add_relu = 2 * n_code, 2 * n_code * h + 2 * h, 2 * h
     if name == "selfview":
-        return 4 * (b * h + 2 * b * k + (n_code + 2) * h + 1), flop, \
-            F32_FLOP_S
-    return (2 * b * h + 8 * b * k + 2 * (n_code + 2) * h + 4, flop,
-            BF16_FLOP_S)
+        return (4 * (b * h + 2 * b * k + (n_code + 2) * h + 1),
+                {F32_FLOP_S: b * k * (code + products + add_relu)})
+    # the products on the tensor cores, the add and relu in bf16, the code
+    # in f32
+    return (2 * b * h + 8 * b * k + 2 * (n_code + 2) * h + 4,
+            {BF16_FLOP_S: b * k * products, BF16_VEC_FLOP_S: b * k * add_relu,
+             F32_FLOP_S: b * k * code})
 
 
 def main() -> None:
@@ -169,13 +222,23 @@ def main() -> None:
     log("phase 1 card", card, t)
     t = time.perf_counter()
     _build.library()
+    ptxas = _build.ptxas_report()
+    resources = {}
+    for rec, piece in PTXAS_NAME.items():
+        found = [v for k, v in ptxas.items() if piece in k]
+        if len(found) != 1:
+            raise AssertionError(f"ptxas report: {len(found)} kernels match "
+                                 f"{piece}")
+        resources[rec] = found[0]
+    for name, res in sorted(ptxas.items()):
+        print(f"[chip_smoke] ptxas {name}: {json.dumps(res)}", flush=True)
     log("phase 1 build", f"one nvcc call over {len(_build.sources())} "
         f"sources into {_build.BUILD_DIR}", t)
 
     # -- 2: weights -------------------------------------------------------
     t = time.perf_counter()
-    net32 = eval_depth.load_model(WEIGHTS, device=dev)
-    net16 = eval_depth.load_model(WEIGHTS, bf16=True, device=dev)
+    nets = {False: eval_depth.load_model(WEIGHTS, device=dev),
+            True: eval_depth.load_model(WEIGHTS, bf16=True, device=dev)}
     log("phase 2 weights", f"{WEIGHTS} f32 and bf16 on {dev}", t)
     t = time.perf_counter()
     batches = eval_depth.scenes(N_SCENES)
@@ -183,27 +246,26 @@ def main() -> None:
         f"{eval_depth.IMAGE_SIZE} ray-cast on the host", t)
 
     # -- 3, 4: serving (the main path) ------------------------------------
-    # Each kernel keeps the arguments of its last launch in serving (one
+    # Each kernel keeps the arguments of its last launch in each mode (one
     # frame's flagship activations) for phases 5 and 6.
     kernels.reset_launch_counts()
-    serving = {}
-    with recorded_kernel_args() as recorded:
-        for mode, net, jitter, kernel in (
-                ("deterministic", net32, False, "shared_z"),
-                ("jittered f32", net32, True, "selfview"),
-                ("jittered bf16", net16, True, "jitter_density")):
+    serving, mode_launches = {}, {}
+    with recorded_kernel_args() as (recorded, state):
+        for mode, bf16, jitter, kernel, _ in MODES:
             t = time.perf_counter()
+            state["mode"] = mode
             before = kernels.launch_counts()[kernel]
-            means, _ = eval_depth.evaluate(net, batches, jitter=jitter)
+            means, _ = eval_depth.evaluate(nets[bf16], batches,
+                                           jitter=jitter)
             torch.cuda.synchronize()
             check_metrics(mode, means)
-            launched = kernels.launch_counts()[kernel] - before
-            if launched <= 0:
+            mode_launches[mode] = kernels.launch_counts()[kernel] - before
+            if mode_launches[mode] <= 0:
                 raise AssertionError(f"{mode}: the {kernel} kernel never "
                                      "ran")
             serving[mode] = means
-            log(f"phase {3 if mode == 'deterministic' else 4} {mode}",
-                f"{kernel} launches {launched}", t)
+            log(f"phase {4 if jitter else 3} {mode}",
+                f"{kernel} launches {mode_launches[mode]}", t)
     launches = kernels.launch_counts()
     print(f"[chip_smoke] main-path launches {json.dumps(launches)}",
           flush=True)
@@ -217,77 +279,92 @@ def main() -> None:
     plain = {"shared_z": shared_z_tail_plain,
              "selfview": selfview_density_plain,
              "jitter_density": jitter_density_plain}
-    calls = {name: (lambda n=name: kernels.KERNELS[n](*recorded[n][0],
-                                                      **recorded[n][1]),
-                    lambda n=name: plain[n](*recorded[n][0],
-                                            **recorded[n][1]))
-             for name in kernels.KERNELS}
-    # The f32 kernels are held against their plain version evaluated in
-    # float64 on the same f32 inputs: two f32 sums of the same 64 terms
-    # (|out| up to ~20 here) in different orders already differ by ~1e-5,
-    # so an f32 plain run would test the orders, not the kernel. The bf16
-    # kernel is held against its plain version as it runs (bf16 rounding
-    # at the same places), as the JAX package's test does.
+    # (label, record, kernel, args, kwargs): each mode's own arguments,
+    # then the two redesigned kernels on ragged cuts of them, at each H
+    # they are built for.
+    cases = [(mode, rec, kernel, *recorded[mode][kernel])
+             for mode, _, _, kernel, rec in MODES]
+    for mode, _, _, kernel, rec in MODES:
+        if kernel in ("selfview", "jitter_density"):
+            args, kwargs = recorded[mode][kernel]
+            cases += [(f"ragged {RAGGED_B}x{k}, H = {h}", rec, kernel,
+                       ragged(kernel, args, h, k), kwargs)
+                      for h, k in RAGGED_HK]
 
-    def in_float64(name):
-        args, kwargs = recorded[name]
-        return plain[name](*(a.double() if a.is_floating_point() else a
-                             for a in args), **kwargs)
-    references = {"shared_z": lambda: in_float64("shared_z"),
-                  "selfview": lambda: in_float64("selfview"),
-                  "jitter_density": calls["jitter_density"][1]}
+    def reference(rec, kernel, args, kwargs):
+        if rec == "jitter_density":
+            return plain[kernel](*args, **kwargs)
+        return plain[kernel](*(a.double() if torch.is_tensor(a)
+                               and a.dtype == torch.float32 else a
+                               for a in args), **kwargs)
     err = {}
     with torch.no_grad():
-        for name, (kernel_fn, plain_fn) in calls.items():
-            got, want = kernel_fn(), references[name]().float()
+        for label, rec, kernel, args, kwargs in cases:
+            got = kernels.KERNELS[kernel](*args, **kwargs)
+            want = reference(rec, kernel, args, kwargs).float()
             torch.cuda.synchronize()
             if got.shape != want.shape or not torch.isfinite(got).all():
-                raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                raise AssertionError(f"{rec} ({label}): shape "
+                                     f"{tuple(got.shape)} vs "
                                      f"{tuple(want.shape)} or not finite")
-            atol, rtol = TOLERANCE[name]
+            atol, rtol = TOLERANCE[rec]
             dev_abs = (got - want).abs()
-            err[name] = dev_abs.max().item()
+            max_dev = dev_abs.max().item()
+            if label in serving:
+                err[rec] = max_dev
             excess = (dev_abs - atol - rtol * want.abs()).max().item()
-            plain_f32 = (got - plain_fn().float()).abs().max().item()
-            print(f"[chip_smoke] {name} at {tuple(got.shape)}: max abs "
-                  f"deviation {err[name]:.3e} from the plain version "
-                  f"({'float64' if name != 'jitter_density' else 'bf16'}; "
-                  f"atol {atol}, rtol {rtol}), {plain_f32:.3e} from it run "
-                  f"in the kernel's own types; max |out| "
+            print(f"[chip_smoke] {rec} ({label}) at {tuple(got.shape)}: "
+                  f"max abs deviation {max_dev:.3e} from the plain version "
+                  f"({'bf16' if rec == 'jitter_density' else 'float64'}; "
+                  f"atol {atol}, rtol {rtol}); max |out| "
                   f"{want.abs().max().item():.3f}", flush=True)
             if excess > 0:
-                raise AssertionError(f"{name}: kernel and plain version "
-                                     f"disagree beyond tolerance "
-                                     f"(max abs {err[name]:.3e})")
+                raise AssertionError(f"{rec} ({label}): kernel and plain "
+                                     f"version disagree beyond tolerance "
+                                     f"(max abs {max_dev:.3e})")
     log("phase 5 kernels vs plain", "all within tolerance", t)
 
     # -- 6: timing ---------------------------------------------------------
     t = time.perf_counter()
     records = []
     with torch.no_grad():
-        for name, (kernel_fn, plain_fn) in calls.items():
-            ms_kernel = cuda_ms(kernel_fn, iters=20)
-            ms_plain = cuda_ms(plain_fn, iters=5, warmup=1)
-            nbytes, flop, peak = work(name, *recorded[name])
-            t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flop / peak * 1e3
-            source, replaces = KERNEL_META[name]
+        for label, rec, kernel, args, kwargs in cases:
+            if label not in serving:
+                continue
+            ms_kernel = cuda_ms(lambda: kernels.KERNELS[kernel](*args,
+                                                                **kwargs),
+                                iters=20)
+            ms_plain = cuda_ms(lambda: plain[kernel](*args, **kwargs),
+                               iters=5, warmup=1)
+            nbytes, flops = work(rec, args, kwargs)
+            flop = sum(flops.values())
+            t_bytes = nbytes / HBM_BYTES_S * 1e3
+            t_ops = sum(n / peak for peak, n in flops.items()) * 1e3
+            bound = max(t_bytes, t_ops)
+            source, replaces = KERNEL_META[rec]
+            res = resources[rec]
             records.append({
-                "name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": err[name], "ms": ms_kernel,
-                "plain_ms": ms_plain, "bound_ms": max(t_bytes, t_ops),
+                "name": rec, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": mode_launches[label],
+                "max_abs_err": err[rec], "ms": ms_kernel,
+                "plain_ms": ms_plain, "bound_ms": bound,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None})
-            print(f"[chip_smoke] {name}: kernel {ms_kernel:.4f} ms, plain "
-                  f"{ms_plain:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
-                  f"({records[-1]['bound_by']}; {nbytes / 1e6:.1f} MB, "
-                  f"{flop / 1e9:.2f} GFLOP)", flush=True)
+                "library_ms": None, "mode": label,
+                "share_of_bound": bound / ms_kernel,
+                "registers": res.get("registers"),
+                "spill_bytes": res.get("spill_stores", 0)
+                + res.get("spill_loads", 0)})
+            print(f"[chip_smoke] {rec} ({label}): kernel {ms_kernel:.4f} "
+                  f"ms, {100 * bound / ms_kernel:.1f}% of its bound "
+                  f"{bound:.4f} ms ({records[-1]['bound_by']}; "
+                  f"{nbytes / 1e6:.1f} MB, {flop / 1e9:.2f} GFLOP); plain "
+                  f"{ms_plain:.4f} ms; {res.get('registers')} registers, "
+                  f"{records[-1]['spill_bytes']} spill bytes", flush=True)
         frame_ms, encode_ms = {}, {}
         height, width = eval_depth.IMAGE_SIZE
         n_coarse = eval_depth.FLAGSHIP_RENDERER.n_coarse
-        for mode, net, jitter in (("deterministic", net32, False),
-                                  ("jittered f32", net32, True),
-                                  ("jittered bf16", net16, True)):
+        for mode, bf16, jitter, _, _ in MODES:
+            net = nets[bf16]
             ev = eval_depth.DepthEvaluator(net, eval_depth.FLAGSHIP_RENDERER,
                                            eval_depth.FLAGSHIP_MODEL_CONF,
                                            jitter=jitter)

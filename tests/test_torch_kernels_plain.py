@@ -6,7 +6,9 @@ versions on the card by chip_smoke.py.
 Tolerances are those of the JAX package's own kernel tests:
 shared_z 1e-5 (tests/test_pallas_shared_z.py:36), jitter_density
 2e-2 abs/rel for bf16 (tests/test_pallas_jitter.py), selfview 3e-5
-(tests/test_pallas_selfview.py:31).
+(tests/test_pallas_selfview.py:31). The kernels' weight layouts and
+arithmetic orders are checked here too, written out in PyTorch from the
+same Python functions that build the layouts for the card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,10 +21,16 @@ from behindthescenes_tpu.ops.pallas.selfview import selfview_density_fused
 from behindthescenes_tpu.ops.pallas.shared_z import shared_z_tail_jnp
 from behindthescenes_tpu_torch.ops import kernels
 from behindthescenes_tpu_torch.ops.kernels import _build
+from behindthescenes_tpu_torch.ops.kernels.jitter_density import \
+    check_shapes as jitter_check_shapes
 from behindthescenes_tpu_torch.ops.kernels.jitter_density import (
-    interleave_to_grouped, jitter_density, jitter_density_plain)
+    jitter_density, jitter_density_plain, mma_code_columns,
+    pack_code_weights)
+from behindthescenes_tpu_torch.ops.kernels.selfview import \
+    check_shapes as selfview_check_shapes
 from behindthescenes_tpu_torch.ops.kernels.selfview import (
-    selfview_density, selfview_density_plain, softplus)
+    grouped_code_weights, interleave_to_grouped, selfview_density,
+    selfview_density_plain, softplus)
 from behindthescenes_tpu_torch.ops.kernels.shared_z import (
     shared_z_tail, shared_z_tail_plain)
 
@@ -46,6 +54,32 @@ def test_shared_z_plain_matches_jnp(shape):
                              jnp.asarray(w), jnp.asarray(bias))[..., 0]
     got = shared_z_tail_plain(_t(hs), _t(hd), _t(w[:, 0]), _t(bias))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(500, 24, 64), (128, 64, 32),
+                                   (33, 7, 16)])
+def test_shared_z_plain_matches_jnp_bf16(shape):
+    """bf16 hs and hd (the JAX package's default evaluation dtype): both
+    add them in bf16 before the relu and project in f32, so they agree to
+    the f32 tolerance."""
+    b, k, h = shape
+    rng = np.random.default_rng(5)
+    hs = rng.normal(0, 2, (b, h)).astype(np.float32)
+    hd = rng.normal(0, 2, (k, h)).astype(np.float32)
+    w = _t(rng.normal(size=(h,)).astype(np.float32)).bfloat16().float()
+    bias = rng.normal(size=(1,)).astype(np.float32)
+    j16 = [jnp.asarray(x, jnp.bfloat16) for x in (hs, hd)]
+    want = shared_z_tail_jnp(*j16, jnp.asarray(w.numpy()[:, None],
+                                               jnp.bfloat16),
+                             jnp.asarray(bias))[..., 0]
+    got = shared_z_tail_plain(_t(hs).bfloat16(), _t(hd).bfloat16(), w,
+                              _t(bias))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    # Adding in f32 instead is a different function, at bf16 size.
+    f32_add = shared_z_tail_plain(_t(hs).bfloat16().float(),
+                                  _t(hd).bfloat16().float(), w, _t(bias))
+    assert np.abs(f32_add.numpy() - np.asarray(want)).max() > 1e-3
 
 
 def _jitter_inputs(b, k, h, seed):
@@ -113,6 +147,136 @@ def test_selfview_equals_jitter_math_in_f32():
                                  _t(w_out), _t(b_out), n_freqs=N_FREQS,
                                  freq_factor=FREQ_FACTOR)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=3e-5)
+
+
+def _interleaved_code(coord):
+    """The 13-dim z code in the PositionalEncoding (interleaved) order."""
+    freqs = FREQ_FACTOR * 2.0 ** torch.arange(N_FREQS, dtype=coord.dtype)
+    sc = coord[..., None] * freqs
+    return torch.cat([coord[..., None], torch.stack(
+        [torch.sin(sc), torch.cos(sc)], -1).flatten(-2)], -1)
+
+
+def test_mma_code_layout_gives_the_interleaved_product():
+    """The jitter kernel's 16 code columns times the packed W_d equal the
+    interleaved code times W_d; every code row appears once and the three
+    pad columns and rows are zero."""
+    cols = mma_code_columns()
+    assert sorted(cols[cols >= 0].tolist()) == list(range(13))
+    assert (cols < 0).sum() == 3
+    coord, _, wd, *_ = _jitter_inputs(40, 16, 64, seed=6)
+    code = _interleaved_code(_t(coord))                       # (B, K, 13)
+    code16 = torch.where(_t(cols) >= 0, code[..., _t(cols).clamp_min(0)],
+                         torch.zeros(()))                     # kernel order
+    packed = pack_code_weights(_t(wd))
+    assert packed.shape == (16, 64) and packed.is_contiguous()
+    assert (packed[_t(cols) < 0] == 0).all()
+    assert (code16[..., _t(cols) < 0] == 0).all()
+    np.testing.assert_allclose((code16 @ packed).numpy(),
+                               (code @ _t(wd)).numpy(), atol=1e-5)
+
+
+def test_jitter_tensor_core_formulation_matches_plain():
+    """The kernel's arithmetic written out in PyTorch: the code in the
+    mma column order rounded to bf16, the product with the packed W_d
+    summed in f32 and rounded, + h_static and + b_in each rounded in
+    bf16, relu, the projection summed in f32 and rounded, + b_out. It is
+    jitter_density_plain up to the order of the f32 sums (atol/rtol
+    2e-2, the kernel's tolerance)."""
+    coord, hs, wd, b_in, w_out, b_out = _jitter_inputs(256, 32, 64, seed=7)
+    cols = _t(mma_code_columns())
+    code = _interleaved_code(_t(coord))
+    code16 = torch.where(cols >= 0, code[..., cols.clamp_min(0)],
+                         torch.zeros(())).bfloat16()
+    bf = torch.bfloat16
+    packed = pack_code_weights(_t(wd).to(bf))
+    hd = (code16.float() @ packed.float()).to(bf)
+    x = torch.relu(_t(hs).to(bf)[:, None, :] + hd + _t(b_in).to(bf))
+    out = (x.float() @ _t(w_out).to(bf).float()).to(bf).float() \
+        + _t(b_out)
+    want = jitter_density_plain(_t(coord), _t(hs), _t(wd), _t(b_in),
+                                _t(w_out), _t(b_out), n_freqs=N_FREQS,
+                                freq_factor=FREQ_FACTOR)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_selfview_register_tiled_order_matches_plain():
+    """The selfview kernel's arithmetic written out in PyTorch on its
+    W_z layout (grouped_code_weights): each hidden unit starts at
+    h_static + b_in and adds the 13 code products in order; the
+    projection keeps four partial sums over j mod 4, added pairwise; then
+    softplus. It gives back selfview_density_plain within 3e-5."""
+    coord, hs, wd, b_in, w_out, b_out = _jitter_inputs(96, 16, 64, seed=8)
+    wz = grouped_code_weights(_t(wd), N_FREQS)
+    np.testing.assert_array_equal(
+        wz.numpy(), wd[interleave_to_grouped(N_FREQS)])
+    c = _t(coord)
+    freqs = FREQ_FACTOR * 2.0 ** torch.arange(N_FREQS, dtype=torch.float32)
+    sc = c[..., None] * freqs
+    code = torch.cat([c[..., None], torch.sin(sc), torch.cos(sc)], -1)
+    h = (_t(hs) + _t(b_in))[:, None, :].expand(96, 16, 64)
+    for i in range(13):
+        h = h + code[..., i:i + 1] * wz[i]
+    terms = torch.relu(h) * _t(w_out)                          # (B, K, 64)
+    acc = terms.reshape(96, 16, 16, 4).sum(2)                  # j mod 4
+    out = softplus((acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
+                   + _t(b_out))
+    want = selfview_density_plain(_t(hs), c, wz, _t(b_in), _t(w_out),
+                                  _t(b_out), n_freqs=N_FREQS,
+                                  freq_factor=FREQ_FACTOR)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=3e-5)
+
+
+JIT, SV = jitter_check_shapes, selfview_check_shapes
+
+
+@pytest.mark.parametrize("check,k,h,n_freqs,ok", [
+    (JIT, 64, 64, 6, True),
+    (JIT, 48, 64, 6, True),
+    (JIT, 40, 64, 6, True),             # a last partial tile of 16
+    (JIT, 24, 32, 6, True),             # exp_synthetic's K and H
+    (JIT, 64, 48, 6, False),            # H not 32 or 64
+    (JIT, 64, 64, 4, False),            # other octave count
+    (SV, 64, 64, 6, True),
+    (SV, 44, 64, 6, True),
+    (SV, 32, 32, 6, True),              # exp_synthetic_thin's K and H
+    (SV, 46, 64, 6, False),             # K not a multiple of 4
+    (SV, 64, 128, 6, False),            # H not 32 or 64
+    (SV, 64, 64, 8, False),
+], ids=lambda v: getattr(v, "__module__", "").rsplit(".", 1)[-1] or None)
+def test_kernel_shape_checks(check, k, h, n_freqs, ok):
+    """What each redesigned kernel takes is checked in Python before any
+    build or launch; what it does not take raises."""
+    if ok:
+        check(k, h, n_freqs)
+    else:
+        with pytest.raises(ValueError):
+            check(k, h, n_freqs)
+
+
+def test_parse_ptxas_report():
+    text = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3fooPf\n"
+        "    16 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 96 registers, used 1 barriers, 412 bytes "
+        "cmem[0]\n"
+        "ptxas info    : Function properties for __internal_trig_reduce\n"
+        "    40 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\n"
+        "ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3barv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 8 registers, 360 bytes cmem[0]\n")
+    assert _build.parse_ptxas(text) == {
+        "_Z3fooPf": {"registers": 96, "stack": 16, "spill_stores": 8,
+                     "spill_loads": 4},
+        "_Z3barv": {"registers": 8, "stack": 0, "spill_stores": 0,
+                    "spill_loads": 0}}
 
 
 def test_interleave_perm_matches_jax():

@@ -219,9 +219,9 @@ def bf16_sides(batch):
         grid = net.encode(torch.as_tensor(batch["imgs"]),
                           torch.as_tensor(batch["projs"]), poses_t,
                           ids_encoder=[0], ids_render=[0])
-    return dict(jgrid=jgrid, want=np.asarray(want),
-                want_sigma=np.asarray(want_sigma), z=np.array(z), net=net,
-                grid=grid)
+    return dict(jnet=jnet, variables=variables, jgrid=jgrid,
+                want=np.asarray(want), want_sigma=np.asarray(want_sigma),
+                z=np.array(z), net=net, grid=grid)
 
 
 def test_bf16_encoder_features_match_jax(bf16_sides):
@@ -252,6 +252,32 @@ def test_bf16_jittered_decode_matches_jax_on_same_features(bf16_sides):
                                          torch.as_tensor(bf16_sides["z"]))
     np.testing.assert_allclose(got.float().numpy(), bf16_sides["want_sigma"],
                                atol=2e-2, rtol=2e-2)
+
+
+def test_bf16_deterministic_decode_matches_jax_on_same_features(bf16_sides):
+    """The JAX package's default evaluation (bf16 compute, the shared
+    camera-z ladder, shared_z_tail_jnp) against the port's bf16
+    deterministic decode (the shared_z kernel's plain version) on the JAX
+    run's own features: both add hs + hd in bf16 before the relu and sum
+    the same bf16 terms in f32, so the densities (up to 16 here) agree
+    within 1e-5, the shared_z kernel's f32 tolerance. Adding hs + hd in
+    f32 instead misses by up to 6e-2."""
+    net, grid = bf16_sides["net"], bf16_sides["grid"]
+    s = (np.arange(K, dtype=np.float32) + 0.5) / K
+    z_cam = (1.0 / ((1.0 - s) / 1.0 + s / 40.0)).astype(np.float32)
+    want = bf16_sides["jnet"].apply(
+        bf16_sides["variables"], bf16_sides["jgrid"], jnp.asarray(z_cam),
+        method=JBTSNet.query_selfview_density_shared_z)
+    feats = torch.as_tensor(np.array(
+        bf16_sides["jgrid"].features[0].astype(jnp.float32))) \
+        .to(torch.bfloat16)
+    same = dataclasses.replace(grid, features=(feats,))
+    with torch.no_grad():
+        got = net.query_selfview_density_shared_z(same,
+                                                  torch.as_tensor(z_cam))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=1e-5)
 
 
 def test_bf16_jittered_depth_matches_jax(bf16_sides):
