@@ -47,7 +47,8 @@
 //  - B = W_d, 16 x H bf16: H / 8 n = 8 tiles held in registers for the
 //    warp's lifetime.
 //  - Epilogue on each f32 accumulator fragment: round to bf16x2, + h_static
-//    and + b_in in bf16x2 (each rounded), relu. The packed m16n8 results
+//    in bf16x2, + b_in and the relu in one fma.rn.relu.bf16x2 (each add
+//    rounded; common.cuh::add_relu_bf16x2). The packed m16n8 results
 //    of two neighbouring n-tiles are exactly the A fragment of the next
 //    m16n8k16, so four more mma against w_out (an n = 8 B tile with only
 //    column 0 non-zero) give the density column, summed in f32.
@@ -63,32 +64,6 @@ constexpr int kTile = 16;           // samples per mma tile (rows of A)
 constexpr int kWarps = 4;           // warps per block
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Two floats rounded to bf16, `lo` in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return bits(__floats2bfloat162_rn(lo, hi));
-}
-
-// Two bf16 values from memory, `lo` in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return bits(__halves2bfloat162(lo, hi));
-}
-
-// d += a . b on the tensor cores: a 16x16 bf16 (row), b 16x8 bf16 (col),
-// d 16x8 f32, in the fragment layouts of the PTX ISA for m16n8k16.
-__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Weights and per-ray values a lane holds in registers (see the kernel),
 // for hidden width kH: kNT n = 8 tiles of the hidden product, kKC k = 16
 // chunks of the projection.
@@ -98,7 +73,7 @@ struct LaneWeights {
   static constexpr int kKC = kH / 16;
   uint32_t bw[kNT][2];          // B fragments of W_d
   uint32_t bo[kKC][2];          // B fragments of the projection (w_out)
-  __nv_bfloat162 bin2[kNT];     // b_in at the lane's accumulator columns
+  uint32_t bin2[kNT];           // b_in at the lane's accumulator columns
   __nv_bfloat162 hs2[kNT];      // h_static of the current ray, likewise
 };
 
@@ -142,7 +117,6 @@ __device__ __forceinline__ void decode_tiles(const LaneWeights<kH>& w,
     }
   }
   __syncwarp();                             // mma.sync needs the whole warp
-  const __nv_bfloat162 zero2 = __float2bfloat162_rn(0.0f);
   float o[kT][4];
 #pragma unroll
   for (int u = 0; u < kT; ++u) o[u][0] = o[u][1] = o[u][2] = o[u][3] = 0.0f;
@@ -157,12 +131,12 @@ __device__ __forceinline__ void decode_tiles(const LaneWeights<kH>& w,
         const int nt = 2 * kc + half;
         float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         mma_bf16(d, a[u], w.bw[nt][0], w.bw[nt][1]);
-        __nv_bfloat162 lo = __floats2bfloat162_rn(d[0], d[1]);   // row g
-        __nv_bfloat162 hi = __floats2bfloat162_rn(d[2], d[3]);   // g + 8
-        lo = __hmax2(__hadd2(__hadd2(w.hs2[nt], lo), w.bin2[nt]), zero2);
-        hi = __hmax2(__hadd2(__hadd2(w.hs2[nt], hi), w.bin2[nt]), zero2);
-        x[2 * half] = bits(lo);
-        x[2 * half + 1] = bits(hi);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(d[0], d[1]);  // g
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(d[2], d[3]);  // g+8
+        x[2 * half] = add_relu_bf16x2(bits(__hadd2(w.hs2[nt], lo)),
+                                      w.bin2[nt]);
+        x[2 * half + 1] = add_relu_bf16x2(bits(__hadd2(w.hs2[nt], hi)),
+                                          w.bin2[nt]);
       }
       mma_bf16(o[u], x, w.bo[kc][0], w.bo[kc][1]);
     }
@@ -211,8 +185,7 @@ jitter_density_kernel(const float* __restrict__ coord,
   }
 #pragma unroll
   for (int nt = 0; nt < kNT; ++nt)
-    w.bin2[nt] = *reinterpret_cast<const __nv_bfloat162*>(b_in + nt * 8 +
-                                                           2 * t);
+    w.bin2[nt] = *reinterpret_cast<const uint32_t*>(b_in + nt * 8 + 2 * t);
   const float bias = *b_out;
   // This lane's two octaves (lanes t = 3 hold c and the pad columns).
   const float f_lo = freq_factor * (float)(1 << (2 * t));
@@ -254,6 +227,78 @@ cudaError_t launch(const void* coord, const void* hs, const void* wd,
   return cudaGetLastError();
 }
 
+// The runtime-shape kernel, for the hidden widths and octave counts the mma
+// kernel is not built for (the wrapper picks it from the shapes before the
+// launch). It is the first, simple version of this decode, with the
+// octave count a runtime value up to kMaxNF: one block per tile of kAnyRays
+// rays;
+// the tile's h_static rows and the small weights (W_d in the interleaved
+// code order, b_in, w_out) sit in shared memory as f32 copies of their
+// bf16 values; each thread decodes one (ray, sample) pair at a time, k
+// fastest, builds the code in registers (bf16-rounded) and loops over H on
+// the f32 CUDA cores with the same rounding points as the mma kernel.
+constexpr int kAnyThreads = 256;
+constexpr int kAnyRays = 32;
+constexpr int kMaxNF = 16;          // code dims up to 1 + 2 * kMaxNF
+
+__global__ void __launch_bounds__(kAnyThreads)
+jitter_density_any_kernel(const float* __restrict__ coord,
+                          const __nv_bfloat16* __restrict__ hs,
+                          const __nv_bfloat16* __restrict__ wd,
+                          const __nv_bfloat16* __restrict__ b_in,
+                          const __nv_bfloat16* __restrict__ w_out,
+                          const float* __restrict__ b_out,
+                          float* __restrict__ out, int B, int K, int H,
+                          int NF, float freq_factor) {
+  const int NC = 1 + 2 * NF;
+  extern __shared__ float smem[];
+  float* hs_s = smem;                 // kAnyRays x H
+  float* wd_s = hs_s + kAnyRays * H;  // NC x H, interleaved code order
+  float* bin_s = wd_s + NC * H;       // H
+  float* wout_s = bin_s + H;          // H
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * kAnyRays;
+  const int n_rays = min(kAnyRays, B - b0);
+
+  for (int i = tid; i < n_rays * H; i += kAnyThreads)
+    hs_s[i] = __bfloat162float(hs[(size_t)b0 * H + i]);
+  for (int i = tid; i < NC * H; i += kAnyThreads)
+    wd_s[i] = __bfloat162float(wd[i]);
+  for (int j = tid; j < H; j += kAnyThreads) {
+    bin_s[j] = __bfloat162float(b_in[j]);
+    wout_s[j] = __bfloat162float(w_out[j]);
+  }
+  __syncthreads();
+
+  const float bias = *b_out;
+  for (int p = tid; p < n_rays * K; p += kAnyThreads) {
+    const int r = p / K;
+    const size_t idx = (size_t)b0 * K + p;
+    const float c = coord[idx];
+    float code[1 + 2 * kMaxNF];
+    code[0] = bf16_round(c);
+#pragma unroll
+    for (int f = 0; f < kMaxNF; ++f) {
+      float sn = 0.0f, cs = 0.0f;
+      if (f < NF) sincosf(c * (freq_factor * (float)(1 << f)), &sn, &cs);
+      code[1 + 2 * f] = bf16_round(sn);
+      code[2 + 2 * f] = bf16_round(cs);
+    }
+    const float* hrow = hs_s + r * H;
+    float acc = 0.0f;
+    for (int j = 0; j < H; ++j) {
+      float hd = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 1 + 2 * kMaxNF; ++i)
+        if (i < NC) hd = fmaf(code[i], wd_s[i * H + j], hd);
+      float x = bf16_round(hrow[j] + bf16_round(hd));
+      x = bf16_round(x + bin_s[j]);
+      acc = fmaf(fmaxf(x, 0.0f), wout_s[j], acc);
+    }
+    out[idx] = bf16_round(acc) + bias;
+  }
+}
+
 }  // namespace
 
 // coord (B, K) f32; hs (B, H) bf16; wd (16, H) bf16, W_d's rows in the
@@ -276,4 +321,28 @@ BTS_EXPORT int bts_jitter_density(const void* coord, const void* hs,
     return (int)launch<32>(coord, hs, wd, b_in, w_out, b_out, out, B, K,
                            freq_factor, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// As bts_jitter_density, for any H and 1 <= n_freqs <= 16 (the runtime-shape
+// kernel), with wd (1 + 2F, H) bf16 in the interleaved code order as the
+// model holds it. Returns cudaErrorInvalidValue where the shapes need more
+// shared memory than a block takes by default.
+BTS_EXPORT int bts_jitter_density_any(const void* coord, const void* hs,
+                                      const void* wd, const void* b_in,
+                                      const void* w_out, const void* b_out,
+                                      void* out, int B, int K, int H,
+                                      int n_freqs, float freq_factor,
+                                      void* stream) {
+  if (n_freqs < 1 || n_freqs > kMaxNF || B <= 0 || K <= 0 || H <= 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)(kAnyRays * H + (1 + 2 * n_freqs) * H + 2 * H) * sizeof(float);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  jitter_density_any_kernel<<<(B + kAnyRays - 1) / kAnyRays, kAnyThreads,
+                              smem, (cudaStream_t)stream>>>(
+      (const float*)coord, (const __nv_bfloat16*)hs,
+      (const __nv_bfloat16*)wd, (const __nv_bfloat16*)b_in,
+      (const __nv_bfloat16*)w_out, (const float*)b_out, (float*)out, B, K, H,
+      n_freqs, freq_factor);
+  return (int)cudaGetLastError();
 }

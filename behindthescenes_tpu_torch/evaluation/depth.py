@@ -20,10 +20,19 @@ from behindthescenes_tpu_torch.platform import exact_f32
 class DepthEvaluator:
     """`jitter=False` (code_mode z): the deterministic shared-z ladder, the
     JAX evaluator's default. `jitter=True`: stratified jitter per ray (the
-    reference's sampling), drawn from the generator given to `evaluate`."""
+    reference's sampling), drawn from the generator given to `evaluate`.
+
+    Only the self-view path is ported: a config that turns it off
+    (`eval_selfview: false`), which the JAX evaluator renders through the
+    general cross-view path, raises NotImplementedError."""
 
     def __init__(self, net: BTSNet, renderer_cfg, config: dict,
                  jitter: bool = False):
+        sv = config.get("eval_selfview", "auto")
+        if sv != "auto" and not sv:
+            raise NotImplementedError(
+                "eval_selfview: false asks for the general cross-view "
+                "path, which the port does not have yet")
         exact_f32()
         self.net = net
         self.cfg = renderer_cfg

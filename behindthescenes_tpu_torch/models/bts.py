@@ -19,6 +19,7 @@ from behindthescenes_tpu_torch import geometry
 from behindthescenes_tpu_torch.models.encoder import make_backbone
 from behindthescenes_tpu_torch.models.mlp import ResnetFC, make_mlp
 from behindthescenes_tpu_torch.ops.grid_sample import resample_uniform_lattice
+from behindthescenes_tpu_torch.ops.kernels import selfview
 from behindthescenes_tpu_torch.ops.kernels.selfview import softplus
 from behindthescenes_tpu_torch.ops.posenc import PositionalEncoding
 
@@ -65,6 +66,31 @@ def pixel_lattice(h: int, w: int, dtype, device) -> torch.Tensor:
     ys = _linspace(h, dtype, device)
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     return torch.stack([gx.reshape(-1), gy.reshape(-1)], -1)
+
+
+def selfview_decode_route(resnet: bool, fusable: bool, include_input: bool,
+                          bf16: bool, sample_color: bool, k: int, h: int,
+                          n_freqs: int) -> str:
+    """How `BTSNet.query_selfview_density` decodes, chosen from the model
+    and the shapes before any call, as the JAX package chooses
+    (behindthescenes_tpu/models/bts.py:574-591):
+    - "generic": an MLP other than ResnetFC, on the full input;
+    - "jitter": a no-block ResnetFC at bf16 with the input in its code,
+      through the jitter_density kernels (any H: the wrapper picks the
+      tensor-core or the runtime-shape kernel), as JAX sends it to its
+      jitter_density kernel;
+    - "selfview": the same at f32 with a softplus density, at the shapes
+      the selfview kernel takes;
+    - "call_split": every other ResnetFC, JAX's jnp route for it (JAX
+      decodes every f32 model so)."""
+    if not resnet:
+        return "generic"
+    if fusable and include_input:
+        if bf16:
+            return "jitter"
+        if sample_color and selfview.kernel_takes(k, h, n_freqs):
+            return "selfview"
+    return "call_split"
 
 
 class BTSNet(nn.Module):
@@ -222,27 +248,28 @@ class BTSNet(nn.Module):
         its own distances z_samp (hw, K): every sample projects back to its
         own pixel, so only the z code varies along a ray.
 
-        ResnetFC with no blocks decodes in the jitter_density kernel (bf16
-        compute) or the selfview kernel (f32); other ResnetFCs take
-        `call_split`, other MLPs the generic full-input path.
-        Returns sigma (1, hw, K)."""
+        The route is `selfview_decode_route`'s. Returns sigma (1, hw, K)."""
         xy, x_static, rows_static, rows_dyn = self.selfview_static(
             grid, scale, out_hw)
         coord = self.selfview_coord(grid, xy, z_samp)
         hw, k = z_samp.shape
         mlp = self._mlp(coarse)
         pe = self.code_xyz
-        if isinstance(mlp, ResnetFC):
-            dt = mlp.dtype or x_static.dtype
-            fused = mlp.fusable() and pe.include_input
-            kw = dict(n_freqs=pe.num_freqs, freq_factor=pe.freq_factor)
-            if fused and dt == torch.bfloat16:
-                out = mlp.call_split_jitter(x_static, coord, rows_static,
-                                            rows_dyn, **kw)
-                return self._density(out)[None]
-            if fused and dt == torch.float32 and self.sample_color:
-                return mlp.call_split_selfview(x_static, coord, rows_static,
-                                               rows_dyn, **kw)[None]
+        resnet = isinstance(mlp, ResnetFC)
+        route = selfview_decode_route(
+            resnet, resnet and mlp.fusable(), pe.include_input,
+            resnet and (mlp.dtype or x_static.dtype) == torch.bfloat16,
+            self.sample_color, k, mlp.lin_in.out_features if resnet else 0,
+            pe.num_freqs)
+        kw = dict(n_freqs=pe.num_freqs, freq_factor=pe.freq_factor)
+        if route == "jitter":
+            out = mlp.call_split_jitter(x_static, coord, rows_static,
+                                        rows_dyn, **kw)
+            return self._density(out)[None]
+        if route == "selfview":
+            return mlp.call_split_selfview(x_static, coord, rows_static,
+                                           rows_dyn, **kw)[None]
+        if route == "call_split":
             code_z = pe.subset((2,))(coord[..., None])         # (hw, K, 13)
             out = mlp.call_split(x_static, code_z, rows_static, rows_dyn)
             return self._density(out[..., 0])[None]

@@ -130,6 +130,18 @@ class ResnetEncoder(nn.Module):
         return feats
 
 
+def reflect_pad1(x):
+    """Reflect padding by one pixel of an NCHW map, as `jnp.pad(...,
+    mode="reflect")`: a dimension of size 1 pads with its edge (reflecting
+    one pixel gives itself), which `F.pad(mode="reflect")` refuses."""
+    if x.shape[-1] > 1 and x.shape[-2] > 1:
+        return F.pad(x, (1, 1, 1, 1), mode="reflect")
+    for pad, size in (((1, 1, 0, 0), x.shape[-1]),
+                      ((0, 0, 1, 1), x.shape[-2])):
+        x = F.pad(x, pad, mode="reflect" if size > 1 else "replicate")
+    return x
+
+
 class Conv3x3(nn.Module):
     """Reflect-padded 3x3 conv (reference layers.py Conv3x3)."""
 
@@ -138,8 +150,7 @@ class Conv3x3(nn.Module):
         self.conv = nn.Conv2d(in_ch, out_ch, 3)
 
     def forward(self, x, dtype=torch.float32):
-        return _conv(self.conv, F.pad(x, (1, 1, 1, 1), mode="reflect"),
-                     dtype)
+        return _conv(self.conv, reflect_pad1(x), dtype)
 
 
 class ConvBlock(nn.Module):

@@ -19,7 +19,8 @@ from behindthescenes_tpu_torch.ops.kernels.jitter_density import \
     jitter_density
 from behindthescenes_tpu_torch.ops.kernels.selfview import (
     grouped_code_weights, selfview_density)
-from behindthescenes_tpu_torch.ops.kernels.shared_z import shared_z_tail
+from behindthescenes_tpu_torch.ops.kernels.shared_z import (
+    shared_z_tail, shared_z_tail_plain)
 
 
 def _dense(lin: nn.Linear, x: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -162,17 +163,22 @@ class ResnetFC(nn.Module):
     def call_split_shared(self, x_static, x_dynamic_shared, rows_static,
                           rows_dynamic):
         """call_split with per-sample inputs SHARED across rays: x_static
-        (B, cs), x_dynamic_shared (K, cd) -> (B, K, d_out). With one
-        density column and no blocks, the tail is the shared_z kernel."""
+        (B, cs), x_dynamic_shared (K, cd) -> (B, K, d_out). With no blocks
+        the tail is `shared_z_tail_jnp`'s function, as in the JAX package
+        (behindthescenes_tpu/models/mlp.py:206-213): relu(h_static + h_dyn)
+        in the compute dtype, w_out cast to it, the projection and b_out in
+        f32. One density column runs in the shared_z kernel; other d_out
+        take the plain f32 contraction, where the JAX package too takes its
+        jnp formulation."""
         w_s, w_d, bias = self.split_lin_in(rows_static, rows_dynamic)
         dt = self.dtype or x_static.dtype
         h_static = self.static_hidden(x_static, w_s)                # (B, H)
         h_dyn = x_dynamic_shared.to(dt) @ w_d.to(dt) + bias.to(dt)  # (K, H)
-        if self.fusable() and self.d_out == 1:
-            w_out, b_out = self.density_column()
-            out = shared_z_tail(h_static.contiguous(), h_dyn.contiguous(),
-                                w_out.to(dt).float(), b_out)
-            return out[..., None]
+        if self.fusable():
+            tail = shared_z_tail if self.d_out == 1 else shared_z_tail_plain
+            return tail(h_static.contiguous(), h_dyn.contiguous(),
+                        self.lin_out.weight.t().to(dt).contiguous(),
+                        self.lin_out.bias.float())
         return self._tail(h_static[:, None, :] + h_dyn[None, :, :])
 
 

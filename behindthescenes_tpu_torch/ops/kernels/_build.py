@@ -34,11 +34,15 @@ _F = ctypes.c_float
 # C signature of every exported launcher: pointers and the stream as
 # c_void_p (a bare Python int would be cut to 32 bits), sizes as c_int.
 # Each returns cudaGetLastError() after its launch.
+_SHARED_Z = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
+_JITTER = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
 SIGNATURES = {
-    "bts_shared_z_tail": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "bts_shared_z_tail_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "bts_jitter_density": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                           _P],
+    "bts_shared_z_tail": _SHARED_Z,
+    "bts_shared_z_tail_bf16": _SHARED_Z,
+    "bts_shared_z_tail_any": _SHARED_Z,
+    "bts_shared_z_tail_any_bf16": _SHARED_Z,
+    "bts_jitter_density": _JITTER,
+    "bts_jitter_density_any": _JITTER,
     "bts_selfview_density": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _F, _P],
 }
@@ -154,9 +158,10 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed: {text} ({err})")
 
 
-# What the two jittered decode kernels are built for: the hidden widths and
-# the octave count of the shipped configs whose decoder fuses (a ResnetFC
-# with no blocks).
+# What the kernels are built for (a template constant): the hidden widths
+# and the octave count of the shipped configs whose decoder fuses (a
+# ResnetFC with no blocks). shared_z and jitter_density launch their
+# runtime-shape kernels for any other width.
 DECODE_H = (32, 64)
 DECODE_N_FREQS = 6
 

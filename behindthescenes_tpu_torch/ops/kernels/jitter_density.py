@@ -1,10 +1,13 @@
 """Jittered self-view density decode in bf16 (logits before softplus).
 
 Counterpart of behindthescenes_tpu/ops/pallas/jitter_density.py. On a
-CUDA tensor `jitter_density` launches the hand-written kernel
-csrc/jitter_density.cu; on a CPU tensor it runs `jitter_density_plain`,
-the JAX package's `jitter_density_jnp` written as plain tensors (it
-materializes the (B, K, 13) code and the (B, K, H) hidden).
+CUDA tensor `jitter_density` launches a hand-written kernel of
+csrc/jitter_density.cu: the tensor-core kernel for the shapes it is built
+for, the runtime-shape kernel for any other hidden width or octave count
+(`kernel_for` picks from the shapes before the launch). On a CPU tensor it
+runs `jitter_density_plain`, the JAX package's `jitter_density_jnp`
+written as plain tensors (it materializes the (B, K, 13) code and the
+(B, K, H) hidden).
 """
 from __future__ import annotations
 
@@ -51,9 +54,25 @@ def pack_code_weights(w_d):
 
 
 def check_shapes(k: int, h: int, n_freqs: int) -> None:
-    """Raise unless the CUDA kernel takes these shapes: H in
+    """Raise unless the tensor-core kernel takes these shapes: H in
     `_build.DECODE_H`, 6 octaves (any K, any number of rays)."""
     _build.check_decode_shapes(k, h, n_freqs, 1, "jitter_density")
+
+
+# The runtime-shape kernel's octave counts (csrc/jitter_density.cu kMaxNF).
+ANY_MAX_FREQS = 16
+
+
+def kernel_for(h: int, n_freqs: int) -> str:
+    """Which kernel a CUDA call launches: "mma" (the tensor-core kernel,
+    built for H in `_build.DECODE_H` and 6 octaves) or "any" (the
+    runtime-shape kernel, any H and 1 to 16 octaves)."""
+    if h in _build.DECODE_H and n_freqs == _build.DECODE_N_FREQS:
+        return "mma"
+    if not 1 <= n_freqs <= ANY_MAX_FREQS:
+        raise ValueError(f"jitter_density: n_freqs={n_freqs}, the CUDA "
+                         f"kernels take 1 to {ANY_MAX_FREQS} octaves")
+    return "any"
 
 
 def jitter_density_plain(coord, h_static, w_d, b_in, w_out, b_out, *,
@@ -84,11 +103,11 @@ def jitter_density(coord, h_static, w_d, b_in, w_out, b_out, *,
                                     n_freqs=n_freqs, freq_factor=freq_factor)
     b, k = coord.shape
     h = h_static.shape[1]
-    check_shapes(k, h, n_freqs)
+    mma = kernel_for(h, n_freqs) == "mma"
     dev = coord.device
     bf = torch.bfloat16
     _build.require(w_d, "w_d", bf, (1 + 2 * n_freqs, h), dev)
-    w_pack = pack_code_weights(w_d)
+    w_pack = pack_code_weights(w_d) if mma else w_d
     _build.require(coord, "coord", torch.float32, (b, k), dev)
     # bf16x2 loads of h_static rows and b_in
     _build.require(h_static, "h_static", bf, (b, h), dev, align=4)
@@ -99,8 +118,9 @@ def jitter_density(coord, h_static, w_d, b_in, w_out, b_out, *,
     if b == 0 or k == 0:
         return out
     lib = _build.library()
+    launch = lib.bts_jitter_density if mma else lib.bts_jitter_density_any
     with torch.cuda.device(dev):
-        err = lib.bts_jitter_density(
+        err = launch(
             coord.data_ptr(), h_static.data_ptr(), w_pack.data_ptr(),
             b_in.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
             out.data_ptr(), b, k, h, n_freqs, float(freq_factor),

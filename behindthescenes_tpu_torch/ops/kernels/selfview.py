@@ -39,6 +39,13 @@ def grouped_code_weights(w_d, n_freqs: int):
     return w_d[_grouped_rows(n_freqs, w_d.device)].contiguous()
 
 
+def kernel_takes(k: int, h: int, n_freqs: int) -> bool:
+    """Whether the CUDA kernel takes these shapes (`check_shapes` raises
+    where it does not)."""
+    return (h in _build.DECODE_H and n_freqs == _build.DECODE_N_FREQS
+            and k % KERNEL_SAMPLES == 0)
+
+
 def check_shapes(k: int, h: int, n_freqs: int) -> None:
     """Raise unless the CUDA kernel takes these shapes: H in
     `_build.DECODE_H`, 6 octaves, K a multiple of 4 (any number of rays)."""

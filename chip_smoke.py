@@ -51,12 +51,21 @@ MODES = (("deterministic f32", False, False, "shared_z", "shared_z"),
 TOLERANCE = {"shared_z": (1e-5, 0.0), "shared_z_bf16": (1e-5, 0.0),
              "selfview": (3e-5, 0.0), "jitter_density": (2e-2, 2e-2)}
 # The ragged checks: rays of one frame cut to a number that is no multiple
-# of the kernels' blocks of rays (4 warps, 256 threads), with (H, K) cuts
-# at both widths the decode kernels are built for, each leaving
-# jitter_density a partial last step: K = 44 ends in one partial tile of
-# 16, K = 24 (exp_synthetic's samples at its H = 32) in a pair.
+# of the kernels' blocks of rays (4 warps, 32-ray tiles, 256 threads), with
+# (H, K) cuts at both widths the kernels are built for, each leaving
+# jitter_density and shared_z a partial last tile of samples: K = 44 ends
+# in one partial tile of 16, K = 24 (exp_synthetic's samples at its H =
+# 32) in a pair; both are partial chunks of shared_z f32's 64 samples. The
+# width-48 cut runs the runtime-shape kernels of shared_z and
+# jitter_density, which serve the widths the others are not built for.
 RAGGED_B = 1001
 RAGGED_HK = ((64, 44), (32, 24))
+RAGGED_ANY_HK = ((48, 44),)
+# Octave counts other than the built 6, which run the runtime-shape
+# jitter_density kernel at the first ragged cut, on W_d rows drawn from
+# RAGGED_SEED.
+RAGGED_OCTAVES = (4, 8)
+RAGGED_SEED = 0
 # H100 SXM peaks at 700 W (NVIDIA data sheet and H100 architecture white
 # paper, dense): HBM bytes/s, f32 FLOP/s and bf16 FLOP/s on the CUDA cores,
 # bf16 FLOP/s on the tensor cores.
@@ -74,10 +83,10 @@ KERNEL_META = {
     "selfview": ("behindthescenes_tpu_torch/csrc/selfview.cu",
                  "behindthescenes_tpu/ops/pallas/selfview.py:78"),
 }
-# Each record's kernel in ptxas's report: a piece of its mangled name (the
-# decode kernels at the served H = 64).
-PTXAS_NAME = {"shared_z": "shared_z_tail_kernelIfE",
-              "shared_z_bf16": "shared_z_tail_kernelI13__nv_bfloat16E",
+# Each record's kernel in ptxas's report: a piece of its mangled name (at
+# the served H = 64).
+PTXAS_NAME = {"shared_z": "shared_z_f32_kernelILi64E",
+              "shared_z_bf16": "shared_z_bf16_kernelILi64ELi4E",
               "selfview": "selfview_density_kernelILi64E",
               "jitter_density": "jitter_density_kernelILi64E"}
 
@@ -149,8 +158,12 @@ def recorded_kernel_args():
 
 
 def ragged(kernel: str, args, h: int, k: int):
-    """A decode kernel's arguments cut to RAGGED_B rays, k samples and the
-    first h hidden units."""
+    """A kernel's arguments cut to RAGGED_B rays, k samples and the first
+    h hidden units."""
+    if kernel == "shared_z":
+        hs, hd, w_out, b_out = args
+        return (hs[:RAGGED_B, :h].contiguous(), hd[:k, :h].contiguous(),
+                w_out[:h].contiguous(), b_out)
     args = list(args)
     hs_arg, coord_arg = (0, 1) if kernel == "selfview" else (1, 0)
     args[hs_arg] = args[hs_arg][:RAGGED_B, :h].contiguous()
@@ -159,6 +172,21 @@ def ragged(kernel: str, args, h: int, k: int):
     args[2:5] = [w if w.shape[-1] == h else w[..., :h].contiguous()
                  for w in args[2:5]]
     return tuple(args)
+
+
+def octave_cut(args, kwargs, n_freqs: int):
+    """jitter_density's arguments and keywords for `n_freqs` octaves: W_d
+    redrawn as 1 + 2 n_freqs rows from RAGGED_SEED, at the scale and in the
+    dtype of the recorded W_d."""
+    import torch
+    w_d = args[2]
+    gen = torch.Generator(device=w_d.device)
+    gen.manual_seed(RAGGED_SEED)
+    rows = torch.randn((1 + 2 * n_freqs, w_d.shape[1]), generator=gen,
+                       device=w_d.device)
+    args = list(args)
+    args[2] = (rows * w_d.float().std()).to(w_d.dtype)
+    return tuple(args), dict(kwargs, n_freqs=n_freqs)
 
 
 def work(name: str, args, kwargs):
@@ -170,12 +198,13 @@ def work(name: str, args, kwargs):
     if name.startswith("shared_z"):
         hs, hd = args[0], args[1]
         (b, h), k = hs.shape, hd.shape[0]
-        nbytes = hs.element_size() * (b * h + k * h) + 4 * (h + 1 + b * k)
+        nbytes = hs.element_size() * (b * h + k * h + h) + 4 * (1 + b * k)
         if name == "shared_z":
             return nbytes, {F32_FLOP_S: 4 * b * k * h}
-        # bf16 add and relu, then the f32 multiply-add of the projection
+        # bf16 add and relu on the CUDA cores; the projection's products of
+        # bf16 values, summed in f32, on the tensor cores
         return nbytes, {BF16_VEC_FLOP_S: 2 * b * k * h,
-                        F32_FLOP_S: 2 * b * k * h}
+                        BF16_FLOP_S: 2 * b * k * h}
     if name == "selfview":
         h_static, coord = args[0], args[1]
     else:
@@ -232,6 +261,9 @@ def main() -> None:
         resources[rec] = found[0]
     for name, res in sorted(ptxas.items()):
         print(f"[chip_smoke] ptxas {name}: {json.dumps(res)}", flush=True)
+    for rec, res in resources.items():
+        if res.get("spill_stores", 0) + res.get("spill_loads", 0):
+            raise AssertionError(f"{rec}: ptxas spills registers: {res}")
     log("phase 1 build", f"one nvcc call over {len(_build.sources())} "
         f"sources into {_build.BUILD_DIR}", t)
 
@@ -280,16 +312,22 @@ def main() -> None:
              "selfview": selfview_density_plain,
              "jitter_density": jitter_density_plain}
     # (label, record, kernel, args, kwargs): each mode's own arguments,
-    # then the two redesigned kernels on ragged cuts of them, at each H
-    # they are built for.
+    # then every kernel on ragged cuts of them, at each H it is built for,
+    # and shared_z and jitter_density at a width, and jitter_density at
+    # octave counts, that run their runtime-shape kernels.
     cases = [(mode, rec, kernel, *recorded[mode][kernel])
              for mode, _, _, kernel, rec in MODES]
     for mode, _, _, kernel, rec in MODES:
-        if kernel in ("selfview", "jitter_density"):
-            args, kwargs = recorded[mode][kernel]
-            cases += [(f"ragged {RAGGED_B}x{k}, H = {h}", rec, kernel,
-                       ragged(kernel, args, h, k), kwargs)
-                      for h, k in RAGGED_HK]
+        args, kwargs = recorded[mode][kernel]
+        cuts = RAGGED_HK + (RAGGED_ANY_HK if kernel != "selfview" else ())
+        cases += [(f"ragged {RAGGED_B}x{k}, H = {h}", rec, kernel,
+                   ragged(kernel, args, h, k), kwargs) for h, k in cuts]
+        if kernel == "jitter_density":
+            h, k = RAGGED_HK[0]
+            cases += [(f"ragged {RAGGED_B}x{k}, H = {h}, {n} octaves", rec,
+                       kernel, *octave_cut(ragged(kernel, args, h, k),
+                                           kwargs, n))
+                      for n in RAGGED_OCTAVES]
 
     def reference(rec, kernel, args, kwargs):
         if rec == "jitter_density":

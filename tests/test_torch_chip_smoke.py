@@ -52,18 +52,43 @@ def test_decode_work_is_the_jax_kernel_cost(name, dtype, weight_bytes):
 
 
 def test_shared_z_work_counts_bf16_inputs_at_two_bytes():
-    """bf16 inputs: half the bytes of hs and hd; the add and the relu run
-    at the bf16 peak of the CUDA cores, the projection's multiply-add at
-    the f32 one."""
-    args32 = (torch.zeros(B, H), torch.zeros(K, H), torch.zeros(H),
+    """bf16 inputs: half the bytes of hs, hd and w; the add and the relu
+    run at the bf16 peak of the CUDA cores, the projection's products of
+    bf16 values (summed in f32) at the bf16 peak of the tensor cores."""
+    args32 = (torch.zeros(B, H), torch.zeros(K, H), torch.zeros(H, 1),
               torch.zeros(1))
-    args16 = (args32[0].bfloat16(), args32[1].bfloat16()) + args32[2:]
+    args16 = tuple(a.bfloat16() for a in args32[:3]) + args32[3:]
     b32, f32 = cs.work("shared_z", args32, {})
     b16, f16 = cs.work("shared_z_bf16", args16, {})
-    assert b32 - b16 == 2 * (B * H + K * H)
+    assert b32 == 4 * (B * H + K * H + H + 1 + B * K)
+    assert b32 - b16 == 2 * (B * H + K * H + H)
     assert f32 == {cs.F32_FLOP_S: 4 * B * K * H}
     assert f16 == {cs.BF16_VEC_FLOP_S: 2 * B * K * H,
-                   cs.F32_FLOP_S: 2 * B * K * H}
+                   cs.BF16_FLOP_S: 2 * B * K * H}
+
+
+@pytest.mark.parametrize("h,k", cs.RAGGED_HK + cs.RAGGED_ANY_HK)
+def test_shared_z_ragged_cut(h, k):
+    """shared_z's cut: RAGGED_B rays (a partial tile of 32), k samples (a
+    partial tile of 16) and the first h hidden units of hs, hd and w;
+    RAGGED_HK's widths run the built kernels, RAGGED_ANY_HK's the
+    runtime-shape ones of shared_z and jitter_density."""
+    from behindthescenes_tpu_torch.ops.kernels.jitter_density import \
+        kernel_for as jitter_kernel_for
+    from behindthescenes_tpu_torch.ops.kernels.shared_z import \
+        kernel_for as shared_z_kernel_for
+    assert cs.RAGGED_B % 32 and k % 16
+    built = (h, k) in cs.RAGGED_HK
+    assert (shared_z_kernel_for(h) == "built") == built
+    assert (jitter_kernel_for(h, 6) == "mma") == built
+    args = (torch.arange(2 * cs.RAGGED_B * H, dtype=torch.float32)
+            .reshape(2 * cs.RAGGED_B, H), torch.randn(K, H),
+            torch.randn(H, 1), torch.randn(1))
+    hs, hd, w, b = cs.ragged("shared_z", args, h, k)
+    assert torch.equal(hs, args[0][:cs.RAGGED_B, :h])
+    assert torch.equal(hd, args[1][:k, :h])
+    assert torch.equal(w, args[2][:h]) and b is args[3]
+    assert all(a.is_contiguous() for a in (hs, hd, w))
 
 
 @pytest.mark.parametrize("h,k", cs.RAGGED_HK)
@@ -84,6 +109,29 @@ def test_ragged_cut_keeps_the_weights(name, h, k):
         assert torch.equal(a, b[..., :h])
         assert (a is b) == (h == H)
     assert cut[5] is args[5]
+
+
+@pytest.mark.parametrize("n_freqs", cs.RAGGED_OCTAVES)
+def test_octave_cut_runs_the_runtime_shape_kernel(n_freqs):
+    """The octave cut redraws W_d as 1 + 2 n_freqs rows in W_d's dtype,
+    the same rows on every call, leaves every other argument as it is,
+    and asks for a count that only the runtime-shape kernel serves."""
+    from behindthescenes_tpu_torch.ops.kernels.jitter_density import \
+        jitter_density_plain, kernel_for
+    h, k = cs.RAGGED_HK[0]
+    args = cs.ragged("jitter_density",
+                     _decode_args("jitter_density", torch.bfloat16,
+                                  b=cs.RAGGED_B), h, k)
+    args = args[:2] + (torch.randn(13, H).bfloat16(),) + args[3:]
+    cut, kwargs = cs.octave_cut(args, KW, n_freqs)
+    again, _ = cs.octave_cut(args, KW, n_freqs)
+    assert kwargs == dict(KW, n_freqs=n_freqs) and KW["n_freqs"] == 6
+    assert kernel_for(h, n_freqs) == "any"
+    assert cut[2].shape == (1 + 2 * n_freqs, h)
+    assert cut[2].dtype == torch.bfloat16 and torch.equal(cut[2], again[2])
+    assert all(a is b for i, (a, b) in enumerate(zip(cut, args)) if i != 2)
+    out = jitter_density_plain(*cut, **kwargs)
+    assert out.shape == (cs.RAGGED_B, k) and torch.isfinite(out).all()
 
 
 def test_every_record_is_named_everywhere():

@@ -26,11 +26,15 @@ from behindthescenes_tpu_torch.ops.kernels.jitter_density import \
 from behindthescenes_tpu_torch.ops.kernels.jitter_density import (
     jitter_density, jitter_density_plain, mma_code_columns,
     pack_code_weights)
+from behindthescenes_tpu_torch.ops.kernels.jitter_density import \
+    kernel_for as jitter_kernel_for
 from behindthescenes_tpu_torch.ops.kernels.selfview import \
     check_shapes as selfview_check_shapes
 from behindthescenes_tpu_torch.ops.kernels.selfview import (
     grouped_code_weights, interleave_to_grouped, selfview_density,
     selfview_density_plain, softplus)
+from behindthescenes_tpu_torch.ops.kernels.shared_z import \
+    kernel_for as shared_z_kernel_for
 from behindthescenes_tpu_torch.ops.kernels.shared_z import (
     shared_z_tail, shared_z_tail_plain)
 
@@ -51,8 +55,9 @@ def test_shared_z_plain_matches_jnp(shape):
     w = rng.normal(size=(h, 1)).astype(np.float32)
     bias = rng.normal(size=(1,)).astype(np.float32)
     want = shared_z_tail_jnp(jnp.asarray(hs), jnp.asarray(hd),
-                             jnp.asarray(w), jnp.asarray(bias))[..., 0]
-    got = shared_z_tail_plain(_t(hs), _t(hd), _t(w[:, 0]), _t(bias))
+                             jnp.asarray(w), jnp.asarray(bias))
+    got = shared_z_tail_plain(_t(hs), _t(hd), _t(w), _t(bias))
+    assert got.shape == (b, k, 1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
@@ -66,12 +71,12 @@ def test_shared_z_plain_matches_jnp_bf16(shape):
     rng = np.random.default_rng(5)
     hs = rng.normal(0, 2, (b, h)).astype(np.float32)
     hd = rng.normal(0, 2, (k, h)).astype(np.float32)
-    w = _t(rng.normal(size=(h,)).astype(np.float32)).bfloat16().float()
+    w = _t(rng.normal(size=(h, 1)).astype(np.float32)).bfloat16()
     bias = rng.normal(size=(1,)).astype(np.float32)
     j16 = [jnp.asarray(x, jnp.bfloat16) for x in (hs, hd)]
-    want = shared_z_tail_jnp(*j16, jnp.asarray(w.numpy()[:, None],
+    want = shared_z_tail_jnp(*j16, jnp.asarray(w.float().numpy(),
                                                jnp.bfloat16),
-                             jnp.asarray(bias))[..., 0]
+                             jnp.asarray(bias))
     got = shared_z_tail_plain(_t(hs).bfloat16(), _t(hd).bfloat16(), w,
                               _t(bias))
     assert got.dtype == torch.float32
@@ -80,6 +85,105 @@ def test_shared_z_plain_matches_jnp_bf16(shape):
     f32_add = shared_z_tail_plain(_t(hs).bfloat16().float(),
                                   _t(hd).bfloat16().float(), w, _t(bias))
     assert np.abs(f32_add.numpy() - np.asarray(want)).max() > 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_shared_z_plain_matches_jnp_multi_column(dtype):
+    """w_out (H, 4), the tail of a d_out 4 model (`sample_color: false`):
+    the sum and the relu in the inputs' dtype, the contraction and b_out
+    in f32, as shared_z_tail_jnp, within 1e-5."""
+    b, k, h, d = 200, 24, 32, 4
+    rng = np.random.default_rng(9)
+    hs = rng.normal(0, 2, (b, h)).astype(np.float32)
+    hd = rng.normal(0, 2, (k, h)).astype(np.float32)
+    w = rng.normal(size=(h, d)).astype(np.float32)
+    bias = rng.normal(size=(d,)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = shared_z_tail_jnp(*(jnp.asarray(x, jdt) for x in (hs, hd, w)),
+                             jnp.asarray(bias))
+    got = shared_z_tail_plain(*(_t(x).to(dtype) for x in (hs, hd, w)),
+                              _t(bias))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, k, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def _shared_z_inputs(b, k, h, seed):
+    """hs, hd, w_out (H, 1), b_out at the flagship's magnitudes (outputs
+    up to ~40)."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 2, (b, h)).astype(np.float32),
+            rng.normal(0, 2, (k, h)).astype(np.float32),
+            rng.normal(0, 1, (h, 1)).astype(np.float32),
+            rng.normal(size=(1,)).astype(np.float32))
+
+
+@pytest.mark.parametrize("h", [32, 64])
+def test_shared_z_register_tile_order_matches_jnp(h):
+    """The f32 kernel's arithmetic written out in PyTorch: each output
+    keeps four partial sums over j mod 4, each a chain over increasing j of
+    w_j * relu(hs + hd), added pairwise, then + b_out. It is
+    shared_z_tail_jnp's function within 1e-5."""
+    b, k = 96, 44
+    hs, hd, w, bias = _shared_z_inputs(b, k, h, seed=10)
+    terms = torch.relu(_t(hs)[:, None, :] + _t(hd)[None]) * _t(w)[:, 0]
+    acc = torch.zeros(b, k, 4)
+    for jc in range(h // 4):                   # j = 4 jc + q
+        acc = acc + terms[..., 4 * jc:4 * jc + 4]
+    out = ((acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])) \
+        + _t(bias)
+    want = shared_z_tail_jnp(*(jnp.asarray(x) for x in (hs, hd, w, bias)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want)[..., 0],
+                               atol=1e-5)
+
+
+def _mma_hidden_units(h):
+    """The bf16 kernel's hidden units per m16n8k16 chunk c and fragment
+    column: lane t of a quad holds columns 2t, 2t+1 (units t*H/4 + 4c,
+    +1) and 2t+8, 2t+9 (units t*H/4 + 4c + 2, +3)."""
+    units = np.zeros((h // 16, 16), np.int64)
+    for c in range(h // 16):
+        for t in range(4):
+            j = t * (h // 4) + 4 * c
+            units[c, [2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9]] = \
+                [j, j + 1, j + 2, j + 3]
+    return units
+
+
+@pytest.mark.parametrize("h", [32, 64])
+def test_shared_z_tensor_core_formulation_matches_jnp(h):
+    """The bf16 kernel's arithmetic written out in fragment order: each
+    chunk's A tile is relu(bf16(hs + hd)) over its 16 units in column
+    order, its B column the bf16 w over the same units; the chunk's
+    products (exact in f32) sum into its own f32 accumulator and the
+    chunks add pairwise, then + b_out. The chunks cover every unit once,
+    and the result is shared_z_tail_jnp's on the bf16 inputs within
+    1e-5."""
+    b, k = 96, 44
+    units = _mma_hidden_units(h)
+    assert sorted(units.ravel().tolist()) == list(range(h))
+    hs, hd, w, bias = _shared_z_inputs(b, k, h, seed=11)
+    bf = torch.bfloat16
+    hs16, hd16, w16 = (_t(x).to(bf) for x in (hs, hd, w))
+    x = torch.relu(hs16[:, None, :] + hd16[None])           # bf16
+    part = [x[..., _t(u)].float() @ w16[_t(u)].float() for u in units]
+    acc = part[0] + part[1]
+    if len(part) == 4:
+        acc = acc + (part[2] + part[3])
+    out = acc + _t(bias)
+    want = shared_z_tail_jnp(*(jnp.asarray(v.float().numpy(), jnp.bfloat16)
+                               for v in (hs16, hd16, w16)),
+                             jnp.asarray(bias))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("h,kernel", [(32, "built"), (64, "built"),
+                                      (48, "any"), (16, "any"),
+                                      (128, "any")])
+def test_shared_z_kernel_for_width(h, kernel):
+    """The wrapper picks the built f32/bf16 kernels for H = 32 and 64 and
+    the runtime-H kernel for any other width, before any launch."""
+    assert shared_z_kernel_for(h) == kernel
 
 
 def _jitter_inputs(b, k, h, seed):
@@ -106,6 +210,46 @@ def test_jitter_density_plain_matches_jnp(shape):
     assert got.dtype == torch.float32 and tuple(got.shape) == shape[:2]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-2,
                                rtol=2e-2)
+
+
+@pytest.mark.parametrize("shape,n_freqs", [((96, 30, 48), 6),
+                                           ((64, 20, 40), 4),
+                                           ((50, 17, 64), 8)])
+def test_jitter_density_plain_matches_jnp_runtime_shapes(shape, n_freqs):
+    """The shapes the runtime-shape kernel serves on the card (H not 32 or
+    64, other octave counts, ragged K): the plain version it is held to
+    there is jitter_density_jnp's function, at the kernel's tolerance."""
+    b, k, h = shape
+    rng = np.random.default_rng(12)
+    coord = rng.uniform(-1, 1, (b, k)).astype(np.float32)
+    hs = rng.normal(0, 0.5, (b, h)).astype(np.float32)
+    wd = rng.normal(0, 0.3, (1 + 2 * n_freqs, h)).astype(np.float32)
+    b_in = rng.normal(0, 0.1, (h,)).astype(np.float32)
+    w_out = rng.normal(0, 0.3, (h,)).astype(np.float32)
+    b_out = np.array([0.07], np.float32)
+    want = jitter_density_jnp(
+        jnp.asarray(coord), jnp.asarray(hs), jnp.asarray(wd),
+        jnp.asarray(b_in), jnp.asarray(w_out[:, None]), b_out[0],
+        n_freqs=n_freqs, freq_factor=FREQ_FACTOR)
+    got = jitter_density_plain(_t(coord), _t(hs), _t(wd), _t(b_in),
+                               _t(w_out), _t(b_out), n_freqs=n_freqs,
+                               freq_factor=FREQ_FACTOR)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("h,n_freqs,kernel", [
+    (64, 6, "mma"), (32, 6, "mma"), (48, 6, "any"), (64, 4, "any"),
+    (100, 16, "any"), (64, 17, None), (64, 0, None)])
+def test_jitter_kernel_for_shapes(h, n_freqs, kernel):
+    """The wrapper picks the tensor-core kernel for its built shapes and
+    the runtime-shape kernel for any other H and 1 to 16 octaves; more
+    octaves than that raise before any launch."""
+    if kernel is None:
+        with pytest.raises(ValueError):
+            jitter_kernel_for(h, n_freqs)
+    else:
+        assert jitter_kernel_for(h, n_freqs) == kernel
 
 
 @pytest.mark.parametrize("shape", [(256, 32, 64), (64, 64, 64),
@@ -294,9 +438,10 @@ def test_softplus_matches_jax_formula():
 def test_wrappers_on_cpu_run_plain_and_count_no_launch():
     coord, hs, wd, b_in, w_out, b_out = _jitter_inputs(40, 8, 16, seed=4)
     kernels.reset_launch_counts()
+    w_col = _t(w_out)[:, None]
     np.testing.assert_array_equal(
-        shared_z_tail(_t(hs), _t(wd), _t(w_out), _t(b_out)).numpy(),
-        shared_z_tail_plain(_t(hs), _t(wd), _t(w_out), _t(b_out)).numpy())
+        shared_z_tail(_t(hs), _t(wd), w_col, _t(b_out)).numpy(),
+        shared_z_tail_plain(_t(hs), _t(wd), w_col, _t(b_out)).numpy())
     kw = dict(n_freqs=N_FREQS, freq_factor=FREQ_FACTOR)
     np.testing.assert_array_equal(
         jitter_density(_t(coord), _t(hs), _t(wd), _t(b_in), _t(w_out),

@@ -117,3 +117,14 @@ def test_resample_matches_grid_sample_border():
         padding_mode="border", align_corners=False)[0].permute(1, 2, 0)
     _close(tgs.resample_uniform_lattice(torch.as_tensor(img), (oh, ow)),
            ref, scale=4.0)
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (1, 3), (3, 1), (4, 5), (2, 2)])
+def test_reflect_pad1_matches_numpy(hw):
+    """Conv3x3's one-pixel reflect padding equals np.pad / jnp.pad
+    mode="reflect", a dimension of size 1 included (its edge)."""
+    from behindthescenes_tpu_torch.models.encoder import reflect_pad1
+    x = np.random.default_rng(0).normal(size=(2, 3) + hw).astype(np.float32)
+    want = np.pad(x, [(0, 0), (0, 0), (1, 1), (1, 1)], mode="reflect")
+    np.testing.assert_array_equal(reflect_pad1(torch.as_tensor(x)).numpy(),
+                                  want)

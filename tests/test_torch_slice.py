@@ -30,7 +30,8 @@ from behindthescenes_tpu_torch.datasets.synthetic import make_test_dataset
 from behindthescenes_tpu_torch.eval_depth import evaluate, load_model
 from behindthescenes_tpu_torch.evaluation.depth import DepthEvaluator
 from behindthescenes_tpu_torch.inference import render_depth_selfview
-from behindthescenes_tpu_torch.models.bts import BTSNet
+from behindthescenes_tpu_torch.models.bts import (BTSNet,
+                                                  selfview_decode_route)
 from behindthescenes_tpu_torch.models.mlp import ResnetFC
 from behindthescenes_tpu_torch.renderer import RendererConfig
 from behindthescenes_tpu_torch.weights import state_dict_from_flat
@@ -296,8 +297,9 @@ def test_bf16_jittered_depth_matches_jax(bf16_sides):
     assert rel.max() < 2.0**-4, rel.max()
 
 
-def _jax_init(mlp_conf, code_mode="z"):
-    conf = dict(MODEL_CONF, mlp_coarse=mlp_conf, code_mode=code_mode)
+def _jax_init(mlp_conf, code_mode="z", d_out=1):
+    conf = dict(MODEL_CONF, mlp_coarse=mlp_conf, code_mode=code_mode,
+                sample_color=d_out == 1)
     net = JBTSNet.from_conf(conf)
     rng = np.random.default_rng(0)
     images = jnp.asarray(rng.uniform(-1, 1, (1, 1, 64, 96, 3)), jnp.float32)
@@ -307,7 +309,7 @@ def _jax_init(mlp_conf, code_mode="z"):
     # The trained encoder of the artifact, a JAX-initialized MLP.
     variables = j_load_npz(ARTIFACT)
     d_in = MODEL_CONF["encoder"]["d_out"] + 39
-    mlp = j_make_mlp(mlp_conf, d_out=1)
+    mlp = j_make_mlp(mlp_conf, d_out=d_out)
     variables["params"]["mlp_coarse"] = mlp.init(
         jax.random.PRNGKey(0), jnp.zeros((1, d_in)))["params"]
     return conf, net, variables, images, ks, poses
@@ -346,3 +348,172 @@ def test_other_mlp_branches_match_jax(mlp_conf, code_mode):
         got = net.query_selfview_density(grid, torch.as_tensor(z))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                rtol=1e-5)
+
+
+def _port_net(conf, variables, compute_dtype=torch.float32):
+    net = BTSNet.from_conf(conf, compute_dtype=compute_dtype)
+    net.load_state_dict(state_dict_from_flat(_flatten(variables)))
+    return net
+
+
+def _port_grid_on_jax_features(net, jgrid, images, ks, poses):
+    """The port's FeatureGrid with the JAX run's own features, so that
+    the decode alone is compared."""
+    with torch.no_grad():
+        grid = net.encode(*(torch.as_tensor(np.asarray(a))
+                            for a in (images, ks, poses)), ids_encoder=[0])
+    feats = torch.as_tensor(np.array(jgrid.features[0].astype(jnp.float32)))
+    return dataclasses.replace(grid, features=(feats.to(net.compute_dtype),))
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_shared_ladder_multi_column_matches_jax(bf16):
+    """`sample_color: false` (d_out 4, a relu density) on the deterministic
+    ladder: JAX sends every no-block ResnetFC to shared_z_tail, which for
+    D != 1 is shared_z_tail_jnp (the relu in the compute dtype, the
+    contraction and b_out in f32). The port's density matches within
+    1e-5, the shared_z tolerance, on the JAX run's own features; the
+    bf16 lin_out the port used before was 1.6e-2 off."""
+    mlp_conf = {"type": "resnet", "n_blocks": 0, "d_hidden": 32}
+    conf, jnet, variables, images, ks, poses = _jax_init(mlp_conf, d_out=4)
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    jnet = JBTSNet.from_conf(conf, compute_dtype=jdt)
+    jgrid = jnet.apply(variables, images, ks, poses, ids_encoder=[0],
+                       method=JBTSNet.encode)
+    s = (np.arange(K, dtype=np.float32) + 0.5) / K
+    z_cam = (1.0 / ((1.0 - s) / 1.0 + s / 40.0)).astype(np.float32)
+    want = jnet.apply(variables, jgrid, jnp.asarray(z_cam),
+                      method=JBTSNet.query_selfview_density_shared_z)
+    net = _port_net(conf, variables,
+                    torch.bfloat16 if bf16 else torch.float32)
+    grid = _port_grid_on_jax_features(net, jgrid, images, ks, poses)
+    with torch.no_grad():
+        got = net.query_selfview_density_shared_z(grid,
+                                                  torch.as_tensor(z_cam))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("args,route", [
+    ((True, True, True, True, True, 64, 64, 6), "jitter"),
+    ((True, True, True, True, True, 30, 48, 6), "jitter"),
+    ((True, True, True, True, True, 64, 64, 4), "jitter"),
+    ((True, True, True, False, True, 64, 64, 6), "selfview"),
+    ((True, True, True, False, True, 24, 32, 6), "selfview"),
+    ((True, True, True, False, True, 30, 32, 6), "call_split"),
+    ((True, True, True, False, True, 64, 48, 6), "call_split"),
+    ((True, True, True, False, True, 64, 64, 4), "call_split"),
+    ((True, True, True, False, False, 64, 64, 6), "call_split"),
+    ((True, False, True, True, True, 64, 64, 6), "call_split"),
+    ((True, True, False, True, True, 64, 64, 6), "call_split"),
+    ((False, False, True, False, True, 64, 64, 6), "generic"),
+])
+def test_selfview_decode_route(args, route):
+    """(ResnetFC, no blocks, input in the code, bf16, softplus density, K,
+    H, octaves) -> the jittered decode's route, chosen before any call:
+    bf16 no-block models take the jitter_density kernels at every shape,
+    as JAX takes its kernel; f32 ones the selfview kernel where it is built
+    for the shapes, else call_split, JAX's own f32 route."""
+    assert selfview_decode_route(*args) == route
+
+
+@pytest.mark.parametrize("h,k", [(48, 8), (32, 30)],
+                         ids=["H48", "K30"])
+def test_unbuilt_decode_shapes_match_jax_f32(h, k):
+    """f32 no-block models at shapes the selfview kernel is not built for
+    (H = 48; K = 30, no multiple of 4) decode through call_split, as the
+    JAX package decodes every f32 model: the same z on both sides, sigma
+    within 2e-5 / 1e-5 (both f32)."""
+    mlp_conf = {"type": "resnet", "n_blocks": 0, "d_hidden": h}
+    conf, jnet, variables, images, ks, poses = _jax_init(mlp_conf)
+    jgrid = jnet.apply(variables, images, ks, poses, ids_encoder=[0],
+                       method=JBTSNet.encode)
+    z = np.sort(np.random.default_rng(3).uniform(1, 40, (64 * 96, k)), -1) \
+        .astype(np.float32)
+    want = jnet.apply(variables, jgrid, jnp.asarray(z),
+                      method=JBTSNet.query_selfview_density)
+    net = _port_net(conf, variables)
+    assert selfview_decode_route(True, True, True, False, True, k, h, 6) \
+        == "call_split"
+    with torch.no_grad():
+        grid = net.encode(*(torch.as_tensor(np.asarray(a))
+                            for a in (images, ks, poses)), ids_encoder=[0])
+        got = net.query_selfview_density(grid, torch.as_tensor(z))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=1e-5)
+
+
+def test_unbuilt_width_bf16_decode_matches_jax_kernel():
+    """A bf16 no-block model of width 48 takes the jitter route, as JAX
+    takes its jitter_density kernel at any width (forced here, interpret
+    mode on the CPU); on the card the wrapper launches the runtime-shape
+    kernel for it. Same features and z on both sides: density within the
+    jitter kernel's bf16 tolerance, atol/rtol 2e-2."""
+    from behindthescenes_tpu.ops.pallas import jitter_density as jjd
+    from behindthescenes_tpu_torch.ops.kernels.jitter_density import \
+        kernel_for
+    h, k = 48, 20
+    mlp_conf = {"type": "resnet", "n_blocks": 0, "d_hidden": h}
+    conf, _, variables, images, ks, poses = _jax_init(mlp_conf)
+    jnet = JBTSNet.from_conf(conf, compute_dtype=jnp.bfloat16)
+    jgrid = jnet.apply(variables, images, ks, poses, ids_encoder=[0],
+                       method=JBTSNet.encode)
+    z = np.sort(np.random.default_rng(4).uniform(1, 40, (64 * 96, k)), -1) \
+        .astype(np.float32)
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("BTS_JITTER_PALLAS", "1")
+        orig = jjd.jitter_density_pallas
+        mp.setattr(jjd, "jitter_density_pallas",
+                   lambda *a, **kw: calls.append(1) or orig(*a, **kw))
+        want = jnet.apply(variables, jgrid, jnp.asarray(z),
+                          method=JBTSNet.query_selfview_density)
+    assert calls, "the JAX bf16 decode did not take its kernel"
+    net = _port_net(conf, variables, torch.bfloat16)
+    assert selfview_decode_route(True, True, True, True, True, k, h, 6) \
+        == "jitter"
+    assert kernel_for(h, 6) == "any"
+    grid = _port_grid_on_jax_features(net, jgrid, images, ks, poses)
+    with torch.no_grad():
+        got = net.query_selfview_density(grid, torch.as_tensor(z))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_evaluator_refuses_the_general_path(port_side):
+    """The JAX evaluator renders through the general cross-view path when
+    a config turns the self-view path off; the port has no such path yet,
+    so it refuses instead of serving self-view depth. The default and an
+    explicit `eval_selfview: true` are served."""
+    with pytest.raises(NotImplementedError):
+        DepthEvaluator(port_side[0], T_CFG,
+                       dict(MODEL_CONF, eval_selfview=False))
+    for sv in ("auto", True):
+        DepthEvaluator(port_side[0], T_CFG,
+                       dict(MODEL_CONF, eval_selfview=sv))
+
+
+def test_encoder_reaches_a_one_pixel_map_as_jax():
+    """A 32x32 image takes the ResNet-18 encoder down to a 1x1 map, which
+    the decoder's reflect-padded convolutions pad as jnp.pad does (the
+    edge). Features within 1e-4 abs + rel of the JAX package's (f32 both
+    sides, as the flagship encoder test)."""
+    rng = np.random.default_rng(5)
+    images = rng.uniform(-1, 1, (1, 1, 32, 32, 3)).astype(np.float32)
+    ks = np.array([[[[1.2, 0, 0], [0, 1.2, 0], [0, 0, 1]]]], np.float32)
+    poses = np.eye(4, dtype=np.float32)[None, None]
+    jnet = JBTSNet.from_conf(MODEL_CONF)
+    jgrid = jnet.apply(j_load_npz(ARTIFACT), jnp.asarray(images),
+                       jnp.asarray(ks), jnp.asarray(poses), ids_encoder=[0],
+                       method=JBTSNet.encode)
+    net = load_model(ARTIFACT, MODEL_CONF, device="cpu")
+    with torch.no_grad():
+        grid = net.encode(torch.as_tensor(images), torch.as_tensor(ks),
+                          torch.as_tensor(poses), ids_encoder=[0])
+    want = np.asarray(jgrid.features[0])
+    assert want.shape == (1, 1, 32, 32, 16)
+    np.testing.assert_allclose(grid.features[0].numpy(), want, atol=1e-4,
+                               rtol=1e-4)
