@@ -1,0 +1,27 @@
+"""Dataset factory (counterpart of behindthescenes_tpu/datasets/factory.py:
+12-30): the Synthetic type, over the port's copy of the synthetic scenes.
+The disk datasets wait for ROADMAP Queue A item 7."""
+from __future__ import annotations
+
+from behindthescenes_tpu_torch.datasets.synthetic import (SyntheticBoxDataset,
+                                                          make_test_dataset)
+
+
+def make_datasets(data_conf: dict):
+    """-> (train_dataset, test_dataset). The training set's items hold
+    data_fc + 2 frames and no depth; the test set's hold 2 frames and
+    depth."""
+    dtype = data_conf["type"]
+    if dtype != "Synthetic":
+        raise NotImplementedError(
+            f"dataset type {dtype!r} is not ported: ROADMAP Queue A item 7")
+    h, w = data_conf.get("image_size", (48, 64))
+    fc = data_conf.get("data_fc", 2)
+    length = data_conf.get("length", 64)
+    scene = data_conf.get("scene", "street")
+    thin = data_conf.get("thin_structures", 0)
+    train = SyntheticBoxDataset(length=length, frame_count=fc + 2,
+                                height=h, width=w, return_depth=False,
+                                seed=1, scene_type=scene,
+                                thin_structures=thin)
+    return train, make_test_dataset((h, w), length, scene, thin)

@@ -1,9 +1,9 @@
-"""Depth evaluator, self-view part (counterpart of
-behindthescenes_tpu/evaluation/depth.py:23-205).
+"""Depth evaluator (counterpart of
+behindthescenes_tpu/evaluation/depth.py:23-182).
 
-Encodes the keyframe, renders its depth through the dense self-view
-query, optionally aligns scale (median / L2 least squares), and computes
-the 7 standard depth metrics. The general (cross-view) path and the NVS
+Encodes the keyframe, renders its depth through the dense self-view query
+or through the general cross-view path, optionally aligns scale (median /
+L2 least squares), and computes the 7 standard depth metrics. The NVS
 metrics are not ported yet.
 """
 from __future__ import annotations
@@ -15,24 +15,27 @@ from behindthescenes_tpu_torch import geometry
 from behindthescenes_tpu_torch.inference import render_depth_selfview
 from behindthescenes_tpu_torch.models.bts import BTSNet
 from behindthescenes_tpu_torch.platform import exact_f32
+from behindthescenes_tpu_torch.ray_sampler import ImageRaySampler
+from behindthescenes_tpu_torch.renderer import render_rays_chunked
+
+# Rays per chunk of the general path: a 192x640 frame's per-sample tensors
+# take about 17.5 GB at once (the JAX evaluator's chunk).
+EVAL_RAY_CHUNK = 16384
 
 
 class DepthEvaluator:
-    """`jitter=False` (code_mode z): the deterministic shared-z ladder, the
-    JAX evaluator's default. `jitter=True`: stratified jitter per ray (the
-    reference's sampling), drawn from the generator given to `evaluate`.
-
-    Only the self-view path is ported: a config that turns it off
-    (`eval_selfview: false`), which the JAX evaluator renders through the
-    general cross-view path, raises NotImplementedError."""
+    """The self-view path unless the config says `eval_selfview: false`:
+    with `jitter=False` (code_mode z) the deterministic shared-z ladder, the
+    JAX evaluator's default; with `jitter=True` stratified jitter per ray
+    (the reference's sampling), drawn from the generator given to
+    `evaluate`. The general path renders every view's rays through the
+    cross-view query in chunks, with stratified jitter, as the JAX
+    evaluator does."""
 
     def __init__(self, net: BTSNet, renderer_cfg, config: dict,
                  jitter: bool = False):
         sv = config.get("eval_selfview", "auto")
-        if sv != "auto" and not sv:
-            raise NotImplementedError(
-                "eval_selfview: false asks for the general cross-view "
-                "path, which the port does not have yet")
+        self.use_selfview = True if sv == "auto" else bool(sv)
         exact_f32()
         self.net = net
         self.cfg = renderer_cfg
@@ -45,9 +48,14 @@ class DepthEvaluator:
         self.deterministic = code_mode == "z" and not jitter
 
     @torch.no_grad()
-    def render(self, images, projs, poses, generator=None, z_samp=None):
+    def render(self, images, projs, poses, generator=None, z_samp=None,
+               z_jitter=None):
         """Keyframe z-depth (1, h, w) of a batch (n = 1) on the model's
-        device."""
+        device. z_samp (self-view) and z_jitter (general path) replace the
+        generator's draws."""
+        if not self.use_selfview:
+            return self.render_general(images, projs, poses, generator,
+                                       z_jitter)[:, 0]
         _, _, h, w, _ = images.shape
         poses_r = geometry.rebase_poses_to_keyframe(poses)
         grid = self.net.encode(images, projs, poses_r, ids_encoder=[0],
@@ -57,6 +65,32 @@ class DepthEvaluator:
             as_z_depth=True, deterministic=self.deterministic,
             generator=generator, z_samp=z_samp)
         return depth
+
+    @torch.no_grad()
+    def render_general(self, images, projs, poses, generator=None,
+                       z_jitter=None):
+        """z-depth (1, v, h, w) of every view through the general path
+        (behindthescenes_tpu/evaluation/depth.py:61-88): all rays of all
+        views, the cross-view query with the keyframe encoded, chunks of
+        EVAL_RAY_CHUNK rays, ray distance to z. z_jitter (1, v*h*w, K)
+        replaces the generator's coarse jitter."""
+        _, _, h, w, _ = images.shape
+        poses_r = geometry.rebase_poses_to_keyframe(poses)
+        grid = self.net.encode(images, projs, poses_r, ids_encoder=[0],
+                               ids_render=[0])
+        sampler = ImageRaySampler(self.z_near, self.z_far, height=h,
+                                  width=w)
+        rays, _ = sampler.sample(None, poses_r, projs)
+
+        def query_fn(xyz, coarse):
+            return self.net.query(grid, xyz, coarse=coarse)
+
+        out = render_rays_chunked(query_fn, rays, self.cfg,
+                                  ray_chunk=EVAL_RAY_CHUNK,
+                                  generator=generator, z_jitter=z_jitter)
+        render_dict = sampler.reconstruct(
+            {"coarse": out["coarse"], "fine": dict(out["coarse"])})
+        return geometry.distance_to_z(render_dict["fine"]["depth"], projs)
 
     def evaluate(self, batch, generator=None) -> dict:
         """batch: numpy dict with imgs (1, v, h, w, 3), poses, projs,

@@ -8,6 +8,9 @@ the port's state_dict keys are the reference checkpoints' keys. Tensors
 are NCHW inside; `compute_dtype=torch.bfloat16` runs the convolutions in
 bf16 while BatchNorm and the activations between blocks stay f32, as the
 JAX package does.
+
+BatchNorm is the port's own (`BatchNorm2d`) with Flax's semantics in train
+mode; `EncoderDummy` is the learned constant map of the overfit harness.
 """
 from __future__ import annotations
 
@@ -25,8 +28,41 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
                     conv.padding)
 
 
-def _bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    return bn(x.float())
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with Flax's semantics (nn.BatchNorm(momentum=0.9,
+    epsilon=1e-5), behindthescenes_tpu/models/encoder.py:39-40, 113-114),
+    keeping torch's state-dict names. Eval mode normalises with the
+    running statistics. Train mode normalises with the batch mean and the
+    BIASED batch variance, and moves the running statistics 10% toward
+    them, the variance biased too (torch's own BatchNorm2d moves it toward
+    the unbiased variance)."""
+
+    FLAX_MOMENTUM = 0.9
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x):
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        # Flax's statistics: the mean, and the variance as E[x^2] - E[x]^2
+        # (its use_fast_variance), which the gradient flows through.
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        with torch.no_grad():
+            m = self.FLAX_MOMENTUM
+            self.running_mean.mul_(m).add_((1 - m) * mean)
+            self.running_var.mul_(m).add_((1 - m) * var)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+
+
+def _bn(bn: BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """BatchNorm in its parameters' dtype (f32 after bf16 convolutions)."""
+    return bn(x.to(bn.weight.dtype))
 
 
 class BasicBlock(nn.Module):
@@ -38,14 +74,14 @@ class BasicBlock(nn.Module):
         super().__init__()
         self.dt = compute_dtype
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(
                 nn.Conv2d(inplanes, planes, 1, stride, bias=False),
-                nn.BatchNorm2d(planes))
+                BatchNorm2d(planes))
 
     def forward(self, x):
         out = torch.relu(_bn(self.bn1, _conv(self.conv1, x, self.dt)))
@@ -64,16 +100,16 @@ class Bottleneck(nn.Module):
         super().__init__()
         self.dt = compute_dtype
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.bn3 = BatchNorm2d(planes * 4)
         self.downsample = None
         if stride != 1 or inplanes != planes * 4:
             self.downsample = nn.Sequential(
                 nn.Conv2d(inplanes, planes * 4, 1, stride, bias=False),
-                nn.BatchNorm2d(planes * 4))
+                BatchNorm2d(planes * 4))
 
     def forward(self, x):
         out = torch.relu(_bn(self.bn1, _conv(self.conv1, x, self.dt)))
@@ -99,7 +135,7 @@ class ResNet(nn.Module):
         block, counts, _ = _RESNET_SPECS[num_layers]
         self.dt = compute_dtype
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         inplanes = 64
         for stage, (n, width) in enumerate(zip(counts, (64, 128, 256, 512))):
             blocks = []
@@ -210,11 +246,12 @@ class Monodepth2(nn.Module):
     Input images in [-1, 1], NCHW; returns per-scale f32 latents."""
 
     def __init__(self, resnet_layers: int = 18, num_ch_dec=None,
-                 d_out: int = 128, scales=(0, 1, 2, 3),
+                 d_out: int = 128, scales=(0, 1, 2, 3), freeze: bool = False,
                  compute_dtype=torch.float32):
         super().__init__()
         self.latent_size = d_out
         self.scales = tuple(scales)
+        self.freeze = freeze
         self.encoder = ResnetEncoder(resnet_layers, compute_dtype)
         self.decoder = Decoder(
             self.encoder.num_ch_enc,
@@ -224,26 +261,57 @@ class Monodepth2(nn.Module):
 
     def forward(self, x):
         outputs = self.decoder(self.encoder(x * 0.5 + 0.5))
-        return [outputs[i].float() for i in self.scales]
+        latents = [outputs[i].to(torch.promote_types(outputs[i].dtype,
+                                                     torch.float32))
+                   for i in self.scales]
+        if self.freeze:
+            # The gradient stops at the backbone's output, as in the JAX
+            # package (its BatchNorm statistics still move in train mode).
+            latents = [lat.detach() for lat in latents]
+        return latents
 
 
-_MONODEPTH2_KEYS = {"type", "remat", "resnet_layers", "num_ch_dec", "d_out",
-                    "scales", "pretrained", "pretrained_strict", "freeze",
-                    "cp_location"}
+class EncoderDummy(nn.Module):
+    """Learned constant feature map in place of the CNN, the overfit
+    harness (behindthescenes_tpu/models/encoder.py:316-335). Returns the
+    map (n, d_out, h, w) for every image."""
+
+    def __init__(self, size=(48, 160), d_out: int = 64):
+        super().__init__()
+        self.latent_size = d_out
+        self.scales = (0,)
+        self.feats = nn.Parameter(torch.randn(size[0], size[1], d_out))
+
+    def forward(self, x):
+        return [self.feats.permute(2, 0, 1)[None].expand(
+            x.shape[0], -1, -1, -1)]
 
 
-def make_backbone(conf: dict, compute_dtype=torch.float32) -> Monodepth2:
-    """Backbone factory; this slice of the port has the monodepth2 type.
-    Keys that only matter for training (remat, pretrained, freeze,
-    cp_location) are accepted and not used here."""
+_BACKBONE_KEYS = {
+    "monodepth2": {"type", "remat", "resnet_layers", "num_ch_dec", "d_out",
+                   "scales", "pretrained", "pretrained_strict", "freeze",
+                   "cp_location"},
+    "dummy": {"type", "size", "d_out"},
+}
+
+
+def make_backbone(conf: dict, compute_dtype=torch.float32):
+    """Backbone factory: the monodepth2 and dummy types. remat, pretrained
+    and cp_location are accepted and not used here: the trainer refuses
+    the ImageNet initialisation they ask for (the synthetic configs set
+    none of them)."""
     btype = conf.get("type", "monodepth2")
-    if btype != "monodepth2":
+    if btype not in _BACKBONE_KEYS:
         raise NotImplementedError(f"encoder type {btype!r} is not ported")
-    unknown = set(conf) - _MONODEPTH2_KEYS
+    unknown = set(conf) - _BACKBONE_KEYS[btype]
     if unknown:
         raise ValueError(f"unknown encoder config keys: {sorted(unknown)}")
+    if btype == "dummy":
+        return EncoderDummy(tuple(conf.get("size", (48, 160))),
+                            conf.get("d_out", 64))
     return Monodepth2(resnet_layers=conf.get("resnet_layers", 18),
                       num_ch_dec=conf.get("num_ch_dec", None),
                       d_out=conf.get("d_out", 128),
                       scales=tuple(conf.get("scales", (0, 1, 2, 3))),
+                      freeze=conf.get("freeze", False),
                       compute_dtype=compute_dtype)

@@ -1,5 +1,5 @@
-"""Weight bridge: the committed Flax `.npz` artifacts -> the port's
-state_dict (inverse of behindthescenes_tpu/import_torch.py:9-13).
+"""Weight bridge between the committed Flax `.npz` artifacts and the port's
+state_dict, both ways (inverse of behindthescenes_tpu/import_torch.py:9-13).
 
 An artifact (written by the JAX package's `utils/io.py:save_params_npz`)
 holds slash-joined Flax keys such as `params/encoder/encoder/conv1/kernel`
@@ -10,6 +10,8 @@ each array to torch's layout:
   dense kernel (I, O)        -> weight (O, I)
   BatchNorm scale / bias     -> weight / bias
   batch_stats mean / var     -> running_mean / running_var
+`flat_from_state_dict` maps back, so the port writes checkpoints that the
+JAX package's `utils/io.load_params_npz` reads.
 """
 from __future__ import annotations
 
@@ -81,6 +83,8 @@ def torch_name(key: str, dispconv_scales=(0, 1, 2, 3)) -> tuple:
         return f"{mlp}.{layer}.{wname}", kind or "dense"
     if p == "" and leaf == "empty_feature":
         return "empty_feature", "plain"
+    if p == "encoder" and leaf == "feats":
+        return "encoder.feats", "plain"
     raise KeyError(f"no port parameter for artifact key {key!r}")
 
 
@@ -106,6 +110,89 @@ def state_dict_from_flat(flat: dict) -> dict:
         sd[name[:-len("running_mean")] + "num_batches_tracked"] = \
             torch.tensor(0, dtype=torch.long)
     return sd
+
+
+_BN_LEAF = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+            "running_mean": ("batch_stats", "mean"),
+            "running_var": ("batch_stats", "var")}
+
+
+def flax_key(name: str, dispconv_scales=(0, 1, 2, 3)) -> tuple:
+    """The port's parameter name -> (Flax key, layout): the inverse of
+    `torch_name`. Raises KeyError for a name with no Flax counterpart."""
+    parts = name.split(".")
+    leaf = parts[-1]
+    m = re.fullmatch(r"encoder\.encoder\.encoder\.(.+)\.(\w+)", name)
+    if m:
+        mod, leaf = m.groups()
+        m2 = re.fullmatch(r"layer(\d)\.(\d+)\.(conv|bn)(\d)", mod)
+        m3 = re.fullmatch(r"layer(\d)\.(\d+)\.downsample\.([01])", mod)
+        if mod in ("conv1", "bn1"):
+            path, is_bn = f"encoder/encoder/{mod}", mod == "bn1"
+        elif m2:
+            stage, blk, part, ci = m2.groups()
+            is_bn = part == "bn"
+            path = (f"encoder/encoder/layer{stage}_{blk}/conv{ci}/"
+                    + ("bn" if is_bn else "conv"))
+        elif m3:
+            stage, blk, part = m3.groups()
+            is_bn = part == "1"
+            path = (f"encoder/encoder/layer{stage}_{blk}/downsample/"
+                    + ("bn" if is_bn else "conv"))
+        else:
+            raise KeyError(name)
+        if is_bn:
+            coll, fleaf = _BN_LEAF[leaf]
+            return f"{coll}/{path}/{fleaf}", "plain"
+        return f"params/{path}/kernel", "conv"
+    m = re.fullmatch(r"encoder\.decoder\.decoder\.(\d+)\.conv(\.conv)?\."
+                     r"(weight|bias)", name)
+    if m:
+        idx, leaf = int(m.group(1)), m.group(3)
+        path = f"dispconv_{dispconv_scales[idx - 10]}" if idx >= 10 \
+            else f"upconv_{4 - idx // 2}_{idx % 2}"
+        fleaf, kind = ("kernel", "conv") if leaf == "weight" \
+            else ("bias", "plain")
+        return f"params/encoder/decoder/{path}/conv/{fleaf}", kind
+    m = re.fullmatch(r"(mlp_coarse|mlp_fine)\.(.+)\.(weight|bias)", name)
+    if m:
+        mlp, layer, leaf = m.groups()
+        layer = re.sub(r"^blocks\.(\d+)\.", r"block_\1/", layer)
+        layer = re.sub(r"^lin(\d+)$", r"lin_\1", layer)
+        fleaf, kind = ("kernel", "dense") if leaf == "weight" \
+            else ("bias", "plain")
+        return f"params/{mlp}/{layer}/{fleaf}", kind
+    if name == "empty_feature":
+        return "params/empty_feature", "plain"
+    if name == "encoder.feats":
+        return "params/encoder/feats", "plain"
+    raise KeyError(f"no Flax key for port parameter {name!r}")
+
+
+def flat_from_state_dict(sd: dict, dispconv_scales=(0, 1, 2, 3)) -> dict:
+    """The port's state_dict (or a dict of per-parameter gradients under
+    the same names) -> flat {Flax key: float32 numpy array} in Flax's
+    layout; `num_batches_tracked` has no Flax counterpart and is dropped.
+    dispconv_scales: the decoder's scales (its 10th, 11th... entries)."""
+    flat = {}
+    for name, t in sd.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        key, kind = flax_key(name, dispconv_scales)
+        arr = t.detach().float().cpu().numpy()
+        if kind == "conv":
+            arr = np.transpose(arr, (2, 3, 1, 0))
+        elif kind == "dense":
+            arr = np.transpose(arr, (1, 0))
+        flat[key] = np.ascontiguousarray(arr)
+    return flat
+
+
+def save_params_npz(path: str, sd: dict, dispconv_scales=(0, 1, 2, 3)):
+    """Write the port's state_dict as a Flax-keyed f32 `.npz` that the JAX
+    package's `utils/io.load_params_npz` reads (the committed artifacts
+    are f16; a training checkpoint keeps f32)."""
+    np.savez_compressed(path, **flat_from_state_dict(sd, dispconv_scales))
 
 
 def load_weights(net: torch.nn.Module, path: str) -> torch.nn.Module:

@@ -14,12 +14,24 @@ kernel against its plain PyTorch version on the flagship activations of one
 frame of each mode and on ragged shapes, and times kernels, plain versions
 and whole frames with CUDA events.
 
+Then trains the flagship model (configs/exp_synthetic_flagship.yaml:
+ResNet-50, 4 items at 192x640, 2048 rays x 64 samples, Adam at 1e-4) from
+the same checkpoint: phase 7 holds one f32 step on the card against the
+same step on the host CPU in float64 (loss, and every parameter's
+gradient norm);
+phase 8 runs 30 steps in bf16 and in f32 on one cached batch with fixed
+draws and times them, split into encode, ray sampling and render, loss,
+backward and optimiser; both check through the launch counters that
+training reaches none of the three decode kernels. Phase 9 serves the
+depth gate through the general cross-view path (eval_selfview: false) and
+holds it to the gate and to the self-view metrics of phase 3.
+
 Prints one progress line per phase (flushed, with the phase's seconds),
-then a JSON line of frame times and metrics, one JSON line with a record
-per kernel, the card's name and power limit, and as the last line
-{"ok": true, "device": {...}}. Any failure
-raises, so the exit code is not 0. Needs one CUDA device; without one it
-stops with an error.
+then a JSON line of frame times, metrics and training times, one JSON line
+with a record per kernel, the card's name and power limit, and as the
+last line {"ok": true, "device": {...}}. Any failure raises, so the exit
+code is not 0. Needs one CUDA device; without one it stops with an
+error.
 """
 from __future__ import annotations
 
@@ -89,6 +101,26 @@ PTXAS_NAME = {"shared_z": "shared_z_f32_kernelILi64E",
               "shared_z_bf16": "shared_z_bf16_kernelILi64ELi4E",
               "selfview": "selfview_density_kernelILi64E",
               "jitter_density": "jitter_density_kernelILi64E"}
+
+# Training (phases 7 and 8): the built-in config of the port's train.py,
+# the draws' numpy seed, the steps and the first step timed.
+TRAIN_CONFIG = "exp_synthetic_flagship"
+TRAIN_SEED = 0
+TRAIN_STEPS = 30
+TIMED_FROM = 5
+# Phase 7's bounds: the card's f32 loss and each parameter's gradient norm
+# (of the tensors whose norm exceeds GRAD_NORM_FLOOR of the largest) against
+# the same step on the host CPU, evaluated there in float64: the host's own
+# f32 step is the less exact of the two (1.3e-3 from float64 on three
+# BatchNorm tensors of the first stage, the card's f32 step 2.4e-4 at
+# most; tools/train_precision.py on an NVIDIA H100 80GB HBM3 at 700 W).
+LOSS_RTOL = 1e-4
+GRAD_NORM_RTOL = 1e-3
+GRAD_NORM_FLOOR = 1e-6
+# Phase 9: the general path against the self-view path, per scene
+# (tests/test_accuracy_gate.py:153-155), each bound times max(1, value).
+GENERAL_BOUNDS = (("abs_rel", 0.02), ("a1", 0.05), ("rmse", 0.05))
+STAGES = ("encode", "render", "loss", "backward", "optimizer")
 
 _T0 = time.perf_counter()
 
@@ -222,6 +254,193 @@ def work(name: str, args, kwargs):
              F32_FLOP_S: b * k * code})
 
 
+def train_batch(conf: dict) -> dict:
+    """The first batch_size items of the synthetic training set (numpy)."""
+    from behindthescenes_tpu_torch.datasets.factory import make_datasets
+    from behindthescenes_tpu_torch.datasets.synthetic import collate
+    train_ds, _ = make_datasets(conf["data"])
+    return collate([train_ds[i] for i in range(conf["batch_size"])])
+
+
+def numpy_draws(conf: dict, batch: dict, seed: int):
+    """A training step's random choices from numpy's generator: patch views
+    among the loss views, patch corners, and the coarse jitter."""
+    import numpy as np
+    import torch
+    from behindthescenes_tpu_torch.ray_sampler import PatchDraws
+    from behindthescenes_tpu_torch.training.view_select import select_views
+    from behindthescenes_tpu_torch.training.wrapper import Draws
+    mc = conf["model_conf"]
+    n, v, h, w, _ = batch["imgs"].shape
+    ids = select_views(np.random.default_rng(conf["seed"]), v,
+                       list(range(mc["n_frames_render"])),
+                       mc["frame_sample_mode"], True)
+    p, rays = mc["patch_size"], mc["ray_batch_size"]
+    pc = rays // (p * p)
+    rng = np.random.default_rng(seed)
+    views = rng.integers(0, len(ids.ids_loss), (n, pc))
+    ys = rng.integers(0, h - p, (n, pc))
+    xs = rng.integers(0, w - p, (n, pc))
+    jitter = rng.uniform(size=(n, rays, conf["renderer"]["n_coarse"]))
+    return Draws(rays=PatchDraws(*(torch.as_tensor(a) for a in
+                                   (views, ys, xs))),
+                 z_jitter=torch.as_tensor(jitter, dtype=torch.float32))
+
+
+def on_device(batch: dict, draws, dev, dtype=None):
+    """The batch and the draws as tensors on `dev`, the floating ones in
+    `dtype` where given."""
+    import dataclasses
+    import torch
+    from behindthescenes_tpu_torch.ray_sampler import PatchDraws
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    jitter = draws.z_jitter.to(dev)
+    if dtype is not None:
+        tb = {k: v.to(dtype) if v.is_floating_point() else v
+              for k, v in tb.items()}
+        jitter = jitter.to(dtype)
+    rays = PatchDraws(*(t.to(dev) for t in dataclasses.astuple(draws.rays)))
+    return tb, dataclasses.replace(draws, rays=rays, z_jitter=jitter)
+
+
+def make_trainer(conf: dict, weights: str, dev, dtype):
+    """A trainer from `weights` on `dev` computing in `dtype` (bf16, f32,
+    or f64 with the parameters in f64 too)."""
+    import torch
+    from behindthescenes_tpu_torch.training.trainer import BTSTrainer
+    trainer = BTSTrainer(conf, device=dev, compute_dtype=dtype)
+    trainer.init_state(weights)
+    if dtype == torch.float64:
+        trainer.net.double()
+    return trainer
+
+
+def train_parity(conf: dict, weights: str, batch: dict, draws, dev,
+                 host="cpu") -> dict:
+    """One f32 step from `weights` on `dev`, and the same step (batch,
+    draws, views) on `host` in float64. Raises unless the loss agrees to
+    LOSS_RTOL and every parameter's gradient norm above GRAD_NORM_FLOOR of
+    the largest to GRAD_NORM_RTOL, or if the step on `dev` launched a
+    decode kernel."""
+    import torch
+    from behindthescenes_tpu_torch.ops import kernels
+    out = {}
+    for d, dtype in ((dev, torch.float32), (host, torch.float64)):
+        trainer = make_trainer(conf, weights, d, dtype)
+        tb, td = on_device(batch, draws, d, dtype)
+        kernels.reset_launch_counts()
+        loss = float(trainer.train_step(tb, td)["loss"])
+        launched = kernels.launch_counts()
+        if dtype == torch.float32 and any(launched.values()):
+            raise AssertionError(f"the train step launched decode kernels: "
+                                 f"{launched}")
+        norms = {n: p.grad.double().norm().item()
+                 for n, p in trainer.net.named_parameters()
+                 if p.grad is not None}
+        out[dtype] = (loss, norms, launched)
+    (loss_d, norms_d, launched), (loss_h, norms_h, _) = \
+        out[torch.float32], out[torch.float64]
+    rel = abs(loss_d - loss_h) / abs(loss_h)
+    if rel > LOSS_RTOL:
+        raise AssertionError(f"loss {loss_d} on {dev} vs {loss_h} on "
+                             f"{host}: {rel:.2e} relative")
+    if set(norms_d) != set(norms_h):
+        raise AssertionError("gradients of different parameters")
+    floor = GRAD_NORM_FLOOR * max(norms_h.values())
+    devs = {n: abs(norms_d[n] - v) / v for n, v in norms_h.items()
+            if v > floor}
+    worst = max(devs, key=devs.get)
+    if devs[worst] > GRAD_NORM_RTOL:
+        raise AssertionError(f"gradient norm of {worst}: {norms_d[worst]} "
+                             f"on {dev} vs {norms_h[worst]} on {host}")
+    return {"loss": loss_d, "loss_host": loss_h, "loss_rel": rel,
+            "grad_norm_rel_max": devs[worst], "grad_norm_worst": worst,
+            "tensors": len(devs), "launches": launched}
+
+
+def cuda_clock():
+    """A clock of CUDA events: clock() records one; clock.ms(a, b) reads
+    the milliseconds between two after a synchronize."""
+    import torch
+
+    def clock():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    clock.ms = lambda a, b: a.elapsed_time(b)
+    clock.sync = torch.cuda.synchronize
+    return clock
+
+
+def train_steps(conf: dict, weights: str, batch: dict, draws, dev,
+                bf16: bool, clock, steps: int = TRAIN_STEPS,
+                timed_from: int = TIMED_FROM) -> dict:
+    """`steps` steps from `weights` on one batch with fixed draws and the
+    same views each step. Raises unless every loss is finite and the last
+    is below the first, or if a decode kernel was launched. Returns the
+    losses and the median ms of the step and of each stage over steps
+    timed_from..steps-1, by `clock`."""
+    import math
+    import statistics
+    import numpy as np
+    import torch
+    from behindthescenes_tpu_torch.ops import kernels
+    trainer = make_trainer(conf, weights, dev,
+                           torch.bfloat16 if bf16 else torch.float32)
+    tb, td = on_device(batch, draws, dev)
+    kernels.reset_launch_counts()
+    losses, marks = [], []
+    for _ in range(steps):
+        trainer.np_rng = np.random.default_rng(conf["seed"])
+        events = [("start", clock())]
+        terms = trainer.train_step(
+            tb, td, mark=lambda name: events.append((name, clock())))
+        losses.append(terms["loss"])
+        marks.append(events)
+    clock.sync()
+    launched = kernels.launch_counts()
+    if any(launched.values()):
+        raise AssertionError(f"training launched decode kernels: {launched}")
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite or not falling: {losses}")
+    split = {}
+    for events in marks[timed_from:]:
+        names = [n for n, _ in events]
+        if names != ["start", *STAGES]:
+            raise AssertionError(f"stages {names}")
+        for (_, a), (name, b) in zip(events, events[1:]):
+            split.setdefault(name, []).append(clock.ms(a, b))
+        split.setdefault("step", []).append(clock.ms(events[0][1],
+                                                     events[-1][1]))
+    return {"losses": losses, "launches": launched,
+            "median_ms": {k: statistics.median(v) for k, v in split.items()}}
+
+
+def general_depth(net, batches, selfview_per_scene, generator) -> dict:
+    """The gate scenes through the evaluator's general path (eval_selfview:
+    false). Raises unless the mean metrics meet the gate and each scene's
+    are within GENERAL_BOUNDS of its self-view metrics."""
+    import numpy as np
+    from behindthescenes_tpu_torch import eval_depth
+    ev = eval_depth.DepthEvaluator(
+        net, eval_depth.FLAGSHIP_RENDERER,
+        dict(eval_depth.FLAGSHIP_MODEL_CONF, eval_selfview=False))
+    if ev.use_selfview:
+        raise AssertionError("eval_selfview: false took the self-view path")
+    per_scene = [ev.evaluate(b, generator=generator) for b in batches]
+    means = {k: float(np.mean([m[k] for m in per_scene]))
+             for k in per_scene[0]}
+    check_metrics("general path f32", means)
+    for i, (gen, sv) in enumerate(zip(per_scene, selfview_per_scene)):
+        for k, tol in GENERAL_BOUNDS:
+            if not abs(gen[k] - sv[k]) < tol * max(1.0, gen[k]):
+                raise AssertionError(f"scene {i} {k}: general {gen[k]:.4f} "
+                                     f"vs self-view {sv[k]:.4f}")
+    return {"means": means, "per_scene": per_scene}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -281,14 +500,14 @@ def main() -> None:
     # Each kernel keeps the arguments of its last launch in each mode (one
     # frame's flagship activations) for phases 5 and 6.
     kernels.reset_launch_counts()
-    serving, mode_launches = {}, {}
+    serving, mode_launches, serving_scenes = {}, {}, {}
     with recorded_kernel_args() as (recorded, state):
         for mode, bf16, jitter, kernel, _ in MODES:
             t = time.perf_counter()
             state["mode"] = mode
             before = kernels.launch_counts()[kernel]
-            means, _ = eval_depth.evaluate(nets[bf16], batches,
-                                           jitter=jitter)
+            means, serving_scenes[mode] = eval_depth.evaluate(
+                nets[bf16], batches, jitter=jitter)
             torch.cuda.synchronize()
             check_metrics(mode, means)
             mode_launches[mode] = kernels.launch_counts()[kernel] - before
@@ -425,8 +644,62 @@ def main() -> None:
                   f"{encode_ms[mode]:.3f} ms", flush=True)
     log("phase 6 timing", card, t)
 
+    # -- 7: one f32 train step, card against host -------------------------
+    from behindthescenes_tpu_torch import train as train_cli
+    t = time.perf_counter()
+    conf = train_cli.config(TRAIN_CONFIG)
+    batch = train_batch(conf)
+    draws = numpy_draws(conf, batch, TRAIN_SEED)
+    log("phase 7 batch", f"{conf['batch_size']} training items at "
+        f"{conf['data']['image_size']} ray-cast on the host", t)
+    t = time.perf_counter()
+    parity = train_parity(conf, WEIGHTS, batch, draws, dev)
+    print(f"[chip_smoke] train step f32: loss {parity['loss']:.8f} on the "
+          f"card, {parity['loss_host']:.8f} on the host CPU in float64 "
+          f"({parity['loss_rel']:.2e} relative, bound {LOSS_RTOL}); "
+          f"gradient norms of {parity['tensors']} tensors within "
+          f"{parity['grad_norm_rel_max']:.2e} relative (bound "
+          f"{GRAD_NORM_RTOL}; worst {parity['grad_norm_worst']}); decode "
+          f"kernel launches {json.dumps(parity['launches'])}", flush=True)
+    log("phase 7 train parity", "card and host agree", t)
+
+    # -- 8: 30 steps in bf16 and in f32 ------------------------------------
+    training = {"card": card, "config": TRAIN_CONFIG, "steps": TRAIN_STEPS,
+                "timed_from": TIMED_FROM}
+    for mode, bf16 in (("bf16", True), ("f32", False)):
+        t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        res = train_steps(conf, WEIGHTS, batch, draws, dev, bf16,
+                          cuda_clock())
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        res["allocated_before"] = resident
+        training[mode] = res
+        med = res["median_ms"]
+        print(f"[chip_smoke] train {mode} ({card}): loss "
+              f"{res['losses'][0]:.6f} -> {res['losses'][-1]:.6f} over "
+              f"{TRAIN_STEPS} steps; median step {med['step']:.2f} ms over "
+              f"steps {TIMED_FROM}-{TRAIN_STEPS - 1}: "
+              + ", ".join(f"{k} {med[k]:.2f}" for k in STAGES)
+              + f" ms; peak memory {res['max_memory_allocated'] / 2**30:.2f}"
+              f" GiB (of which {resident / 2**30:.2f} GiB held before the "
+              f"trainer); decode kernel launches "
+              f"{json.dumps(res['launches'])}",
+              flush=True)
+        log(f"phase 8 train {mode}", "losses finite and falling", t)
+
+    # -- 9: the general depth path -----------------------------------------
+    t = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(eval_depth.SEED)
+    general = general_depth(nets[False], batches,
+                            serving_scenes["deterministic f32"], gen)
+    log("phase 9 general path", "gate met, within the self-view bounds", t)
+
     print(json.dumps({"frame_ms": frame_ms, "encode_ms": encode_ms,
-                      "serving": serving}), flush=True)
+                      "serving": serving, "general_path": general["means"],
+                      "train_parity": parity, "training": training}),
+          flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

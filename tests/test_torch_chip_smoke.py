@@ -145,3 +145,98 @@ def test_every_record_is_named_everywhere():
         path, line = replaces.rsplit(":", 1)
         with open(os.path.join(ROOT, path)) as f:
             assert f.read().splitlines()[int(line) - 1].startswith("def ")
+
+
+# -- phases 7-9 rehearsed on the CPU at the small training shape ----------
+class _HostClock:
+    """Stands in for chip_smoke's CUDA-event clock in the rehearsal."""
+
+    def __call__(self):
+        import time
+        return time.perf_counter()
+
+    @staticmethod
+    def ms(a, b):
+        return (b - a) * 1e3
+
+    @staticmethod
+    def sync():
+        pass
+
+
+@pytest.fixture(scope="module")
+def small_training(tmp_path_factory):
+    """exp_synthetic (ResNet-18 at 48x64, 2 items, 256 rays x 24 samples)
+    from the port's initialiser, written as a checkpoint, with its batch
+    and numpy draws."""
+    from behindthescenes_tpu_torch import train as train_cli
+    from behindthescenes_tpu_torch.training.trainer import BTSTrainer
+    from behindthescenes_tpu_torch.weights import save_params_npz
+    conf = train_cli.config("exp_synthetic", f32=True)
+    trainer = BTSTrainer(conf, device="cpu")
+    trainer.init_state()
+    path = str(tmp_path_factory.mktemp("weights") / "init.npz")
+    save_params_npz(path, trainer.net.state_dict())
+    batch = cs.train_batch(conf)
+    return conf, path, batch, cs.numpy_draws(conf, batch, cs.TRAIN_SEED)
+
+
+def test_numpy_draws_cover_the_patch_ranges(small_training):
+    conf, _, batch, draws = small_training
+    n, v, h, w, _ = batch["imgs"].shape
+    assert (n, v, h, w) == (2, 4, 48, 64)
+    pc = conf["model_conf"]["ray_batch_size"] // 16
+    for t, hi in ((draws.rays.views, 2), (draws.rays.ys, h - 4),
+                  (draws.rays.xs, w - 4)):
+        assert t.shape == (n, pc) and 0 <= t.min() and t.max() < hi
+    assert draws.z_jitter.shape == (n, 256, 24)
+    again = cs.numpy_draws(conf, batch, cs.TRAIN_SEED)
+    assert torch.equal(again.z_jitter, draws.z_jitter)
+
+
+def test_train_parity_rehearsed(small_training):
+    """Phase 7 with the host on both sides: its f32 step against its
+    float64 step within the phase's bounds, no decode kernel counted."""
+    conf, path, batch, draws = small_training
+    res = cs.train_parity(conf, path, batch, draws, "cpu")
+    assert 0 < res["loss_rel"] <= cs.LOSS_RTOL
+    assert 0 < res["grad_norm_rel_max"] <= cs.GRAD_NORM_RTOL
+    assert res["tensors"] > 50 and not any(res["launches"].values())
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_train_steps_rehearsed(small_training, bf16):
+    """Phase 8 for 6 steps: a falling loss, every stage timed."""
+    conf, path, batch, draws = small_training
+    res = cs.train_steps(conf, path, batch, draws, "cpu", bf16, _HostClock(),
+                         steps=6, timed_from=2)
+    assert len(res["losses"]) == 6 and res["losses"][-1] < res["losses"][0]
+    assert set(res["median_ms"]) == set(cs.STAGES) | {"step"}
+    assert abs(sum(res["median_ms"][k] for k in cs.STAGES)
+               - res["median_ms"]["step"]) < 0.5 * res["median_ms"]["step"]
+
+
+def test_general_depth_rehearsed(monkeypatch):
+    """Phase 9 on two gate scenes at 48x64 with the flagship checkpoint:
+    the per-scene bounds against the self-view metrics hold, and a scene
+    outside them fails the phase. The checkpoint was trained at 192x640,
+    so at 48x64 its depth is far from the gate (abs_rel 0.67): the
+    rehearsal moves the gate's bounds out of the way, as the card's run
+    does not."""
+    monkeypatch.setattr(cs, "ABS_REL_MAX", 1.0)
+    monkeypatch.setattr(cs, "A1_MIN", 0.0)
+    from behindthescenes_tpu_torch import eval_depth
+    from behindthescenes_tpu_torch.datasets.synthetic import (
+        collate, make_test_dataset)
+    net = eval_depth.load_model(os.path.join(ROOT, cs.WEIGHTS),
+                                device="cpu")
+    ds = make_test_dataset(image_size=(48, 64))
+    batches = [collate([ds[i]]) for i in range(2)]
+    _, selfview = eval_depth.evaluate(net, batches)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    res = cs.general_depth(net, batches, selfview, gen)
+    assert len(res["per_scene"]) == 2
+    with pytest.raises(AssertionError):
+        worse = [dict(m, abs_rel=m["abs_rel"] + 0.1) for m in selfview]
+        cs.general_depth(net, batches, worse, gen)

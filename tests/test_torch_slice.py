@@ -483,19 +483,6 @@ def test_unbuilt_width_bf16_decode_matches_jax_kernel():
                                atol=2e-2, rtol=2e-2)
 
 
-def test_evaluator_refuses_the_general_path(port_side):
-    """The JAX evaluator renders through the general cross-view path when
-    a config turns the self-view path off; the port has no such path yet,
-    so it refuses instead of serving self-view depth. The default and an
-    explicit `eval_selfview: true` are served."""
-    with pytest.raises(NotImplementedError):
-        DepthEvaluator(port_side[0], T_CFG,
-                       dict(MODEL_CONF, eval_selfview=False))
-    for sv in ("auto", True):
-        DepthEvaluator(port_side[0], T_CFG,
-                       dict(MODEL_CONF, eval_selfview=sv))
-
-
 def test_encoder_reaches_a_one_pixel_map_as_jax():
     """A 32x32 image takes the ResNet-18 encoder down to a 1x1 map, which
     the decoder's reflect-padded convolutions pad as jnp.pad does (the
