@@ -2,11 +2,14 @@
 (counterpart of behindthescenes_tpu/ops/ssim.py:12-75), channel-last; the
 3x3 window runs as a depthwise convolution.
 
-The window statistics are computed in float64: the variance as E[x^2] -
-E[x]^2 cancels on flat patches, where f32 loses about 1e-5 of the
-photometric loss (the JAX package's f32 loss is that far from exact on
-the synthetic scenes; tests/test_torch_train.py). The result has the
-input's dtype."""
+The window statistics are computed in float64, where the JAX package
+computes them in the input's dtype: the variance as E[x^2] - E[x]^2
+cancels on flat patches, and two f32 evaluations of the formula that sum
+in different orders (XLA's convolution and torch's) differ by their own
+rounding, up to 1.5e-4 of the SSIM map on near-flat patches and 2.8e-6 on
+uniform noise. In float64 the port is the nearer to exact of the two (see
+tests/test_torch_general_path.py). The window's weights are the
+reference's f32 constants, as in JAX. The result has the input's dtype."""
 from __future__ import annotations
 
 import torch
@@ -40,10 +43,10 @@ def ssim(x: torch.Tensor, y: torch.Tensor, *, pad_reflection: bool = True,
         x = F.pad(x, (1, 1, 1, 1), mode=mode)
         y = F.pad(y, (1, 1, 1, 1), mode=mode)
     if gaussian_average:
-        window = torch.tensor(_GAUSS3, dtype=x.dtype, device=x.device)
+        window = torch.tensor(_GAUSS3, dtype=torch.float32)
     else:
-        window = torch.full((3, 3), 1.0 / 9.0, dtype=x.dtype,
-                            device=x.device)
+        window = torch.full((3, 3), 1.0 / 9.0, dtype=torch.float32)
+    window = window.to(x.device, x.dtype)
     mu_x = _depthwise3(x, window)
     mu_y = _depthwise3(y, window)
     mu_x_sq = mu_x * mu_x

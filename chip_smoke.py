@@ -315,17 +315,17 @@ def make_trainer(conf: dict, weights: str, dev, dtype):
     return trainer
 
 
-def train_parity(conf: dict, weights: str, batch: dict, draws, dev,
-                 host="cpu") -> dict:
+def train_parity(conf: dict, weights: str, batch: dict, draws,
+                 dev) -> dict:
     """One f32 step from `weights` on `dev`, and the same step (batch,
-    draws, views) on `host` in float64. Raises unless the loss agrees to
-    LOSS_RTOL and every parameter's gradient norm above GRAD_NORM_FLOOR of
-    the largest to GRAD_NORM_RTOL, or if the step on `dev` launched a
-    decode kernel."""
+    draws, views) on the host CPU in float64. Raises unless the loss
+    agrees to LOSS_RTOL and every parameter's gradient norm above
+    GRAD_NORM_FLOOR of the largest to GRAD_NORM_RTOL, or if the step on
+    `dev` launched a decode kernel."""
     import torch
     from behindthescenes_tpu_torch.ops import kernels
     out = {}
-    for d, dtype in ((dev, torch.float32), (host, torch.float64)):
+    for d, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
         trainer = make_trainer(conf, weights, d, dtype)
         tb, td = on_device(batch, draws, d, dtype)
         kernels.reset_launch_counts()
@@ -343,7 +343,7 @@ def train_parity(conf: dict, weights: str, batch: dict, draws, dev,
     rel = abs(loss_d - loss_h) / abs(loss_h)
     if rel > LOSS_RTOL:
         raise AssertionError(f"loss {loss_d} on {dev} vs {loss_h} on "
-                             f"{host}: {rel:.2e} relative")
+                             f"the host: {rel:.2e} relative")
     if set(norms_d) != set(norms_h):
         raise AssertionError("gradients of different parameters")
     floor = GRAD_NORM_FLOOR * max(norms_h.values())
@@ -352,7 +352,7 @@ def train_parity(conf: dict, weights: str, batch: dict, draws, dev,
     worst = max(devs, key=devs.get)
     if devs[worst] > GRAD_NORM_RTOL:
         raise AssertionError(f"gradient norm of {worst}: {norms_d[worst]} "
-                             f"on {dev} vs {norms_h[worst]} on {host}")
+                             f"on {dev} vs {norms_h[worst]} on the host")
     return {"loss": loss_d, "loss_host": loss_h, "loss_rel": rel,
             "grad_norm_rel_max": devs[worst], "grad_norm_worst": worst,
             "tensors": len(devs), "launches": launched}
