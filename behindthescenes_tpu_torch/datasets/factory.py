@@ -1,10 +1,10 @@
 """Dataset factory (counterpart of behindthescenes_tpu/datasets/factory.py:
-12-30): the Synthetic type, over the port's copy of the synthetic scenes.
+12-60): the Synthetic type, over the port's copy of the synthetic scenes.
 The disk datasets wait for ROADMAP Queue A item 7."""
 from __future__ import annotations
 
-from behindthescenes_tpu_torch.datasets.synthetic import (SyntheticBoxDataset,
-                                                          make_test_dataset)
+from behindthescenes_tpu_torch.datasets import synthetic
+from behindthescenes_tpu_torch.datasets.synthetic import SyntheticBoxDataset
 
 
 def make_datasets(data_conf: dict):
@@ -24,4 +24,10 @@ def make_datasets(data_conf: dict):
                                 height=h, width=w, return_depth=False,
                                 seed=1, scene_type=scene,
                                 thin_structures=thin)
-    return train, make_test_dataset((h, w), length, scene, thin)
+    return train, synthetic.make_test_dataset((h, w), length, scene, thin)
+
+
+def make_test_dataset(data_conf: dict):
+    """The test split of `make_datasets` (reference data_util.py:181-217).
+    """
+    return make_datasets(data_conf)[1]

@@ -1,13 +1,12 @@
 """Self-supervised training of the synthetic-scene models through the port.
 
-    python -m behindthescenes_tpu_torch.train --steps N [--config NAME] \
-        [--f32] [--weights npz] [--out dir] [--device cpu]
+    python -m behindthescenes_tpu_torch.train --steps N [-cn NAME] \
+        [key=value ...] [--f32] [--weights npz] [--out dir] [--device cpu]
 
-NAME is exp_synthetic_flagship (the default: ResNet-50, 192x640, batch 4,
-2048 rays x 64 samples) or exp_synthetic (ResNet-18, 48x64, batch 2, 256
-rays x 24 samples); each built-in config mirrors configs/NAME.yaml merged
-over configs/default.yaml and configs/data/synthetic.yaml (reading the
-YAML files themselves waits for the port's config loader). Trains from
+NAME is a training config of configs/ (default exp_synthetic_flagship:
+ResNet-50, 192x640, batch 4, 2048 rays x 64 samples; exp_synthetic:
+ResNet-18, 48x64, batch 2, 256 rays x 24 samples), read with its
+`defaults` and the overrides by the port's config loader. Trains from
 --weights or from the port's initialiser, in bf16 compute unless --f32,
 prints one JSON line of loss terms per step, and writes the parameters
 and BatchNorm statistics as a Flax-keyed f32 `.npz` (DIR/params.npz) that
@@ -17,66 +16,25 @@ unless --device says otherwise.
 from __future__ import annotations
 
 import argparse
-import copy
 import json
 import os
 import time
 
 import numpy as np
 
+from behindthescenes_tpu_torch.config import (find_config, load_config,
+                                              parse_cli_overrides)
 from behindthescenes_tpu_torch.datasets.factory import make_datasets
 from behindthescenes_tpu_torch.datasets.synthetic import collate
 from behindthescenes_tpu_torch.training.trainer import BTSTrainer
 from behindthescenes_tpu_torch.weights import save_params_npz
 
-_LOSS = {"criterion": "l1+ssim", "invalid_policy": "weight_guided",
-         "lambda_edge_aware_smoothness": 0.001}
-_COMMON_MODEL = {
-    "arch": "BTSNet", "prediction_mode": "default",
-    "code": {"num_freqs": 6, "freq_factor": 1.5, "include_input": True},
-    "mlp_fine": {"type": "empty"}, "z_near": 1, "z_far": 40, "inv_z": True,
-    "n_frames_render": 2, "frame_sample_mode": "default",
-    "sample_mode": "patch", "flip_augmentation": False,
-    "learn_empty": False, "code_mode": "z",
-}
-CONFIGS = {
-    # configs/exp_synthetic_flagship.yaml
-    "exp_synthetic_flagship": {
-        "seed": 0, "batch_size": 4, "learning_rate": 1.0e-4,
-        "data": {"type": "Synthetic", "image_size": (192, 640),
-                 "data_fc": 2, "length": 64},
-        "model_conf": dict(
-            _COMMON_MODEL,
-            encoder={"type": "monodepth2", "resnet_layers": 50,
-                     "num_ch_dec": (32, 32, 64, 128, 256), "d_out": 64,
-                     "scales": (0,)},
-            mlp_coarse={"type": "resnet", "n_blocks": 0, "d_hidden": 64},
-            patch_size=8, ray_batch_size=2048),
-        "loss": _LOSS, "scheduler": {"type": "fix"},
-        "renderer": {"n_coarse": 64, "n_fine": 0, "lindisp": True,
-                     "hard_alpha_cap": True},
-    },
-    # configs/exp_synthetic.yaml
-    "exp_synthetic": {
-        "seed": 0, "batch_size": 2, "learning_rate": 1.0e-4,
-        "data": {"type": "Synthetic", "image_size": (48, 64),
-                 "data_fc": 2, "length": 64},
-        "model_conf": dict(
-            _COMMON_MODEL,
-            encoder={"type": "monodepth2", "resnet_layers": 18,
-                     "num_ch_dec": (16, 16, 32, 32, 64), "d_out": 16,
-                     "scales": (0,)},
-            mlp_coarse={"type": "resnet", "n_blocks": 0, "d_hidden": 32},
-            patch_size=4, ray_batch_size=256),
-        "loss": _LOSS, "scheduler": {"type": "fix"},
-        "renderer": {"n_coarse": 24, "n_fine": 0, "lindisp": True,
-                     "hard_alpha_cap": True},
-    },
-}
 
-
-def config(name: str = "exp_synthetic_flagship", f32: bool = False) -> dict:
-    conf = copy.deepcopy(CONFIGS[name])
+def config(name: str = "exp_synthetic_flagship", f32: bool = False,
+           overrides=()) -> dict:
+    """configs/NAME.yaml composed with the `key=value` overrides, with
+    bf16 compute unless f32."""
+    conf = load_config(find_config(name), parse_cli_overrides(overrides))
     conf["bf16"] = not f32
     return conf
 
@@ -95,8 +53,9 @@ def batches(conf: dict, rng: np.random.Generator):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, required=True)
-    ap.add_argument("--config", default="exp_synthetic_flagship",
-                    choices=sorted(CONFIGS))
+    ap.add_argument("-cn", "--config", default="exp_synthetic_flagship",
+                    help="a training config of configs/")
+    ap.add_argument("overrides", nargs="*", help="key=value overrides")
     ap.add_argument("--f32", action="store_true",
                     help="f32 compute (default: bf16, as the JAX trainer)")
     ap.add_argument("--weights", default=None,
@@ -106,8 +65,8 @@ def main(argv=None):
                     help="directory for params.npz")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
-    args = ap.parse_args(argv)
-    conf = config(args.config, args.f32)
+    args = ap.parse_intermixed_args(argv)
+    conf = config(args.config, args.f32, args.overrides)
     trainer = BTSTrainer(conf, device=args.device)
     trainer.init_state(args.weights)
     data = batches(conf, np.random.default_rng(conf["seed"]))

@@ -100,6 +100,10 @@ class BTSWrapper:
         Returns the data dict: coarse / fine per-scale lists, rgb_gt,
         rays."""
         cfg = renderer_cfg or self.renderer_cfg
+        if cfg.using_fine:
+            raise NotImplementedError(
+                "training with the fine pass (n_fine > 0) is not ported: "
+                "ROADMAP Queue A item 5")
         draws = draws or Draws()
         net = self.net
         images, projs = batch["imgs"], batch["projs"]

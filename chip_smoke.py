@@ -26,6 +26,21 @@ training reaches none of the three decode kernels. Phase 9 serves the
 depth gate through the general cross-view path (eval_selfview: false) and
 holds it to the gate and to the self-view metrics of phase 3.
 
+Then evaluates the repository's configs through the port's config-driven
+task runner (behindthescenes_tpu_torch.eval), at their own sizes, each
+held to the means the JAX package printed for the same command on the
+CPU: phase 10 novel-view synthesis of the flagship
+(eval_synthetic_flagship_nvs: 4 scenes at 192x640, 24 coarse + 16
+importance-fine samples reusing the coarse ones, bf16), phase 11 that of
+the RE10K-shape model (eval_synthetic_re10k_nvs: 8 indoor scenes at
+256x384, 48 samples, distance code, one-block MLP), each with its frame
+time split into encode and render and its peak memory, and no decode
+kernel launched; phase 12 depth through exp_synthetic_re10k (self-view,
+distance code) and eval_synthetic_flagship (bf16, through the shared_z
+kernel, whose launches it counts). Phase 13 holds the fine pass's value
+on the thin-structure checkpoint: 8 coarse + 8 fine beats 16 flat, and
+reusing the coarse samples equals re-querying them.
+
 Prints one progress line per phase (flushed, with the phase's seconds),
 then a JSON line of frame times, metrics and training times, one JSON line
 with a record per kernel, the card's name and power limit, and as the
@@ -121,6 +136,49 @@ GRAD_NORM_FLOOR = 1e-6
 # (tests/test_accuracy_gate.py:153-155), each bound times max(1, value).
 GENERAL_BOUNDS = (("abs_rel", 0.02), ("a1", 0.05), ("rmse", 0.05))
 STAGES = ("encode", "render", "loss", "backward", "optimizer")
+
+# Phases 10-12: configs of configs/ with their checkpoints, through the
+# port's task runner, and the means that the JAX package printed for the
+# same command on the CPU (`JAX_PLATFORMS=cpu python eval.py -cn <config>
+# checkpoint=<npz>`, all scenes of each config). The two sides draw their
+# jitter from different generators, so the gap is sampling noise and
+# rounding; JAX_GAP bounds it.
+RE10K_WEIGHTS = "media/weights/re10k_synth_conv.npz"
+THIN_WEIGHTS = "media/weights/thin_synth_conv.npz"
+CONFIG_RUNS = (
+    ("10", "eval_synthetic_flagship_nvs", WEIGHTS,
+     {"psnr": 21.737083151764843, "ssim": 0.8550886325707533}),
+    ("11", "eval_synthetic_re10k_nvs", RE10K_WEIGHTS,
+     {"psnr": 34.67743968537996, "ssim": 0.9651916788752829}),
+    ("12", "exp_synthetic_re10k", RE10K_WEIGHTS,
+     {"abs_rel": 0.11355338990688324, "a1": 0.9073164198133682}),
+    ("12", "eval_synthetic_flagship", WEIGHTS,
+     {"abs_rel": 0.2174396589398384, "a1": 0.5499790945193574}),
+)
+JAX_GAP = {"psnr": 0.15, "ssim": 0.005, "abs_rel": 0.005, "a1": 0.01}
+# The JAX package's own NVS gate floors for these families
+# (tests/test_nvs_gate_re10k.py:36-37, measured at 64x96;
+# tests/test_train_anneal_gate.py:31-32, flagship shape at 96x320).
+NVS_FLOORS = {"eval_synthetic_re10k_nvs": {"psnr": 27.2, "ssim": 0.87},
+              "eval_synthetic_flagship_nvs": {"psnr": 17.9, "ssim": 0.70}}
+# Timed NVS frames per config (after one untimed frame).
+NVS_TIMED_FRAMES = 5
+# Phase 13 (tests/test_fine_gate_thin.py:41,103): the thin-structure
+# checkpoint on 4 held-out scenes at 96x128 in f32 (as that gate), 8 coarse
+# + 8 fine with reuse against 16 flat, and reuse against re-query at 16 +
+# 16.
+THIN_CONFIG = "eval_synthetic_thin_nvs"
+THIN_OVERRIDES = ("data.length=32", "bf16=false")
+FINE_PROFILES = {
+    "8+8 reuse": ("renderer.n_coarse=8", "renderer.n_fine=8",
+                  "renderer.fine_reuse_coarse=true"),
+    "16 flat": ("renderer.n_coarse=16", "renderer.n_fine=0"),
+    "16+16 reuse": ("renderer.n_coarse=16", "renderer.n_fine=16",
+                    "renderer.fine_reuse_coarse=true"),
+    "16+16 re-query": ("renderer.n_coarse=16", "renderer.n_fine=16",
+                       "renderer.fine_reuse_coarse=false")}
+FINE_MARGIN_MIN = 0.14
+REUSE_GAP_MAX = 0.05
 
 _T0 = time.perf_counter()
 
@@ -441,6 +499,181 @@ def general_depth(net, batches, selfview_per_scene, generator) -> dict:
     return {"means": means, "per_scene": per_scene}
 
 
+@contextlib.contextmanager
+def recorded_evaluations():
+    """Records every call the task runner makes to an evaluator's
+    `evaluate`: yields the list of (evaluator, batch, metrics)."""
+    from behindthescenes_tpu_torch.evaluation.depth import DepthEvaluator
+    from behindthescenes_tpu_torch.evaluation.nvs import NVSEvaluator
+    calls, saved = [], {}
+    for cls in (DepthEvaluator, NVSEvaluator):
+        saved[cls] = cls.evaluate
+
+        def recorder(self, batch, *args, _fn=cls.evaluate, **kwargs):
+            out = _fn(self, batch, *args, **kwargs)
+            calls.append((self, batch, out))
+            return out
+        cls.evaluate = recorder
+    try:
+        yield calls
+    finally:
+        for cls, fn in saved.items():
+            cls.evaluate = fn
+
+
+def config_eval(name: str, checkpoint: str, dev, overrides=()):
+    """configs/NAME.yaml with the checkpoint and overrides through the
+    port's task runner on `dev`. Returns (config, means, [(evaluator,
+    batch, per-scene metrics)])."""
+    from behindthescenes_tpu_torch.config import (find_config, load_config,
+                                                  parse_cli_overrides)
+    from behindthescenes_tpu_torch.evaluation.tasks import TASKS
+    conf = load_config(find_config(name), parse_cli_overrides(
+        [f"checkpoint={checkpoint}", *overrides]))
+    with recorded_evaluations() as calls:
+        means = TASKS[conf["model"]](conf, device=dev)
+    return conf, means, calls
+
+
+def nvs_frame_ms(evaluator, batch, clock, frames: int) -> dict:
+    """Median ms of one NVS frame (every view of a batch rendered from
+    frame 0's encoding) and of its encode and render stages, over `frames`
+    frames after one untimed, by `clock`."""
+    import statistics
+    import torch
+    dev = next(evaluator.net.parameters()).device
+    args = [torch.as_tensor(batch[k], device=dev)
+            for k in ("imgs", "projs", "poses")]
+    split = {}
+    for i in range(frames + 1):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(i)
+        events = [("start", clock())]
+        rgb = evaluator.render(*args, generator=gen,
+                               mark=lambda name: events.append((name,
+                                                                clock())))
+        clock.sync()
+        if not torch.isfinite(rgb).all():
+            raise AssertionError("an NVS frame is not finite")
+        if i == 0:
+            continue
+        for (_, a), (name, b) in zip(events, events[1:]):
+            split.setdefault(name, []).append(clock.ms(a, b))
+        split.setdefault("frame", []).append(clock.ms(events[0][1],
+                                                      events[-1][1]))
+    return {k: statistics.median(v) for k, v in split.items()}
+
+
+def config_phase(name: str, checkpoint: str, jax_means: dict, dev, clock,
+                 overrides=(), frames: int = NVS_TIMED_FRAMES) -> dict:
+    """One config through the task runner, with the decode kernels'
+    launches counted from 0 and the peak memory. Raises unless every mean
+    is finite and within JAX_GAP of jax_means, and the NVS means meet
+    NVS_FLOORS. NVS configs also get their frame time split."""
+    import math
+    import torch
+    from behindthescenes_tpu_torch.ops import kernels
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    conf, means, calls = config_eval(name, checkpoint, dev, overrides)
+    launched = kernels.launch_counts()
+    res = {"config": name, "checkpoint": checkpoint, "means": means,
+           "jax_means": jax_means,
+           "per_scene": [out for _, _, out in calls], "launches": launched,
+           "peak_memory": torch.cuda.max_memory_allocated() if cuda
+           else None}
+    if not calls or not all(math.isfinite(v) for v in means.values()):
+        raise AssertionError(f"{name}: {len(calls)} scenes, means {means}")
+    for k, want in jax_means.items():
+        res[f"gap_{k}"] = means[k] - want
+        if not abs(means[k] - want) <= JAX_GAP[k]:
+            raise AssertionError(f"{name}: {k} {means[k]:.6f} vs JAX "
+                                 f"{want:.6f} (bound {JAX_GAP[k]})")
+    for k, floor in NVS_FLOORS.get(name, {}).items():
+        if not means[k] > floor:
+            raise AssertionError(f"{name}: {k} {means[k]:.4f} under the "
+                                 f"JAX gate's {floor}")
+    if conf["model"] == "bts_nvs":
+        res["frame_ms"] = nvs_frame_ms(calls[-1][0], calls[-1][1], clock,
+                                       frames)
+    return res
+
+
+def fine_value(dev, overrides=THIN_OVERRIDES) -> dict:
+    """Phase 13: the thin-structure checkpoint's NVS PSNR under each of
+    FINE_PROFILES. Raises unless 8 + 8 with reuse beats 16 flat by more
+    than FINE_MARGIN_MIN, and reuse equals re-query at 16 + 16 within
+    REUSE_GAP_MAX."""
+    psnr = {}
+    for label, profile in FINE_PROFILES.items():
+        _, means, _ = config_eval(THIN_CONFIG, THIN_WEIGHTS, dev,
+                                  (*overrides, *profile))
+        psnr[label] = means["psnr"]
+    margin = psnr["8+8 reuse"] - psnr["16 flat"]
+    gap = abs(psnr["16+16 reuse"] - psnr["16+16 re-query"])
+    if not margin > FINE_MARGIN_MIN:
+        raise AssertionError(f"8 + 8 fine beats 16 flat by {margin:.4f} dB "
+                             f"(min {FINE_MARGIN_MIN}): {psnr}")
+    if not gap < REUSE_GAP_MAX:
+        raise AssertionError(f"reuse and re-query differ by {gap:.4f} dB: "
+                             f"{psnr}")
+    return {"psnr": psnr, "margin": margin, "reuse_gap": gap}
+
+
+def config_phases(dev, card: str, clock_fn, overrides=(),
+                  thin_overrides=THIN_OVERRIDES,
+                  frames: int = NVS_TIMED_FRAMES):
+    """Phases 10-13 on `dev`, printing each phase's results: every config
+    of CONFIG_RUNS (with `overrides`) through `config_phase`, the NVS
+    configs with no decode kernel launched, eval_synthetic_flagship with
+    the shared_z kernel launched; then `fine_value`. Returns (the config
+    records, the fine-pass record)."""
+    configs = []
+    for phase, name, checkpoint, jax_means in CONFIG_RUNS:
+        t = time.perf_counter()
+        res = config_phase(name, checkpoint, jax_means, dev, clock_fn(),
+                           overrides, frames)
+        configs.append(res)
+        launched = res["launches"]
+        if phase in ("10", "11") and any(launched.values()):
+            raise AssertionError(f"{name} launched decode kernels: "
+                                 f"{launched}")
+        if name == "eval_synthetic_flagship" and \
+                launched["shared_z"] <= 0:
+            raise AssertionError(f"{name}: the shared_z kernel never ran")
+        keys = list(jax_means)
+        peak = res["peak_memory"]
+        print(f"[chip_smoke] {name} ({card}): "
+              + ", ".join(f"{k} {res['means'][k]:.6f} (JAX on the CPU "
+                          f"{jax_means[k]:.6f}, gap {res['gap_' + k]:+.6f},"
+                          f" bound {JAX_GAP[k]})" for k in keys)
+              + "; per scene "
+              + json.dumps([[round(m[k], 6) for k in keys]
+                            for m in res["per_scene"]])
+              + f"; decode kernel launches {json.dumps(launched)}; peak "
+              "memory " + ("not measured" if peak is None
+                           else f"{peak / 2**30:.2f} GiB"), flush=True)
+        if "frame_ms" in res:
+            fm = res["frame_ms"]
+            print(f"[chip_smoke] {name} NVS frame ({card}): median "
+                  f"{fm['frame']:.3f} ms over {frames} frames, encode "
+                  f"{fm['encode']:.3f} ms, render {fm['render']:.3f} ms",
+                  flush=True)
+        log(f"phase {phase} {name}", "within the bounds of JAX's means", t)
+
+    t = time.perf_counter()
+    fine = fine_value(dev, thin_overrides)
+    print("[chip_smoke] thin-structure NVS PSNR: "
+          + json.dumps({k: round(v, 6) for k, v in fine["psnr"].items()})
+          + f"; 8 + 8 fine beats 16 flat by {fine['margin']:.4f} dB (min "
+          f"{FINE_MARGIN_MIN}); reuse vs re-query {fine['reuse_gap']:.2e} dB"
+          f" (max {REUSE_GAP_MAX})", flush=True)
+    log("phase 13 fine pass", "beats flat; reuse equals re-query", t)
+    return configs, fine
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -696,9 +929,13 @@ def main() -> None:
                             serving_scenes["deterministic f32"], gen)
     log("phase 9 general path", "gate met, within the self-view bounds", t)
 
+    # -- 10-13: configs through the port's task runner ---------------------
+    configs, fine = config_phases(dev, card, cuda_clock)
+
     print(json.dumps({"frame_ms": frame_ms, "encode_ms": encode_ms,
                       "serving": serving, "general_path": general["means"],
-                      "train_parity": parity, "training": training}),
+                      "train_parity": parity, "training": training,
+                      "configs": configs, "fine_pass": fine}),
           flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)

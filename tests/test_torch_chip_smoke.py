@@ -240,3 +240,65 @@ def test_general_depth_rehearsed(monkeypatch):
     with pytest.raises(AssertionError):
         worse = [dict(m, abs_rel=m["abs_rel"] + 0.1) for m in selfview]
         cs.general_depth(net, batches, worse, gen)
+
+
+# -- phases 10-13 rehearsed on the CPU at 24x32 -----------------------------
+# 4 scenes at 24x32, in f32: bf16 convolutions are slow on a loaded CPU.
+CUT = ("data.image_size=[24, 32]", "data.length=8", "bf16=false")
+
+
+def test_config_phases_rehearsed(monkeypatch, capsys):
+    """Phases 10-13 as main() runs them, at CUT: every config
+    of CONFIG_RUNS with its checkpoint through the task runner, per-scene
+    metrics recorded and printed, the NVS frames split into encode and
+    render, shared_z counted on the flagship's depth (a wrapper call counts
+    as a launch here), then the fine pass's profiles. The JAX means and the
+    fine pass's margin are those of the configs' own sizes, so the
+    rehearsal moves those bounds out of the way; reuse against re-query
+    keeps its bound."""
+    from behindthescenes_tpu_torch.models import mlp
+    shared_z = mlp.shared_z_tail
+
+    def counted(*args, **kwargs):
+        shared_z.launches += 1
+        return shared_z(*args, **kwargs)
+    monkeypatch.setattr(mlp, "shared_z_tail", counted)
+    monkeypatch.setattr(cs, "JAX_GAP", dict.fromkeys(cs.JAX_GAP, 1e9))
+    monkeypatch.setattr(cs, "NVS_FLOORS", {})
+    monkeypatch.setattr(cs, "FINE_MARGIN_MIN", -1e9)
+    monkeypatch.chdir(ROOT)
+    configs, fine = cs.config_phases(
+        "cpu", "host", _HostClock, overrides=CUT,
+        thin_overrides=("data.image_size=[24, 32]", *cs.THIN_OVERRIDES),
+        frames=1)
+    assert [c["config"] for c in configs] == [c[1] for c in cs.CONFIG_RUNS]
+    assert {c["config"] for c in configs} >= {
+        "eval_synthetic_flagship_nvs", "eval_synthetic_re10k_nvs",
+        "exp_synthetic_re10k", "eval_synthetic_flagship"}
+    for res, (_, name, _, jax_means) in zip(configs, cs.CONFIG_RUNS):
+        assert len(res["per_scene"]) == 4
+        assert set(jax_means) <= set(res["means"])
+        assert ("frame_ms" in res) == name.endswith("_nvs")
+        assert (res["launches"]["shared_z"] > 0) == \
+            (name == "eval_synthetic_flagship")
+    assert set(fine["psnr"]) == set(cs.FINE_PROFILES)
+    assert fine["reuse_gap"] < cs.REUSE_GAP_MAX
+    out = capsys.readouterr().out
+    assert out.count("NVS frame (host)") == 2
+    assert "8 + 8 fine beats 16 flat" in out
+
+
+def test_config_phase_bounds_fail_the_run(monkeypatch):
+    """A mean outside its bound of JAX's and a missed fine-pass margin each
+    fail their phase."""
+    monkeypatch.setattr(cs, "JAX_GAP", dict.fromkeys(cs.JAX_GAP, 0.0))
+    _, name, ckpt, jax_means = cs.CONFIG_RUNS[2]
+    with pytest.raises(AssertionError, match="vs JAX"):
+        cs.config_phase(name, os.path.join(ROOT, ckpt), jax_means, "cpu",
+                        _HostClock(), overrides=CUT)
+    monkeypatch.setattr(cs, "THIN_WEIGHTS",
+                        os.path.join(ROOT, cs.THIN_WEIGHTS))
+    monkeypatch.setattr(cs, "FINE_MARGIN_MIN", 1e9)
+    with pytest.raises(AssertionError, match="beats 16 flat"):
+        cs.fine_value("cpu", ("data.image_size=[24, 32]",
+                              *cs.THIN_OVERRIDES))

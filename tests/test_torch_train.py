@@ -486,25 +486,15 @@ def test_train_cli_checkpoint_loads_in_jax(resnet_step, tmp_path):
                                "params/mlp_coarse/lin_in/kernel"])
 
 
-def _lists(x):
-    if isinstance(x, dict):
-        return {k: _lists(v) for k, v in x.items()}
-    if isinstance(x, (list, tuple)):
-        return [_lists(v) for v in x]
-    return x
-
-
 def test_train_configs_mirror_the_yaml():
-    """train.py's built-in configs hold the model, loss, renderer, data
-    and batch of configs/exp_synthetic*.yaml, as the JAX config loader
-    composes them; the precision is bf16 unless --f32."""
+    """train.py reads configs/exp_synthetic*.yaml through the port's
+    config loader: the whole composed config equals the JAX config
+    loader's, overrides included; the precision is bf16 unless --f32."""
     from behindthescenes_tpu.config import load_config
     root = os.path.join(os.path.dirname(__file__), "..", "configs")
-    for name in train_cli.CONFIGS:
-        want = _lists(load_config(os.path.join(root, name + ".yaml")))
-        got = _lists(train_cli.config(name))
-        assert got["model_conf"] == want["model_conf"], name
-        for key in ("loss", "renderer", "scheduler", "batch_size",
-                    "learning_rate", "seed", "data"):
-            assert got[key] == want[key], (name, key)
-        assert got["bf16"] and not train_cli.config(name, f32=True)["bf16"]
+    for name in ("exp_synthetic_flagship", "exp_synthetic"):
+        want = load_config(os.path.join(root, name + ".yaml"),
+                           {"renderer": {"n_coarse": 16}})
+        got = train_cli.config(name, overrides=["renderer.n_coarse=16"])
+        assert got.pop("bf16") and not train_cli.config(name, True)["bf16"]
+        assert got == want, name
