@@ -1,6 +1,7 @@
 """Dataset factory (counterpart of behindthescenes_tpu/datasets/factory.py:
-12-60): the Synthetic type, over the port's copy of the synthetic scenes.
-The disk datasets wait for ROADMAP Queue A item 7."""
+12-60): the Synthetic type, over the port's copy of the synthetic scenes,
+and KITTI_360 (`datasets/kitti_360.py`). The other disk datasets wait for
+ROADMAP Queue A item 7."""
 from __future__ import annotations
 
 from behindthescenes_tpu_torch.datasets import synthetic
@@ -8,10 +9,14 @@ from behindthescenes_tpu_torch.datasets.synthetic import SyntheticBoxDataset
 
 
 def make_datasets(data_conf: dict):
-    """-> (train_dataset, test_dataset). The training set's items hold
-    data_fc + 2 frames and no depth; the test set's hold 2 frames and
-    depth."""
+    """-> (train_dataset, test_dataset). Synthetic: the training set's
+    items hold data_fc + 2 frames and no depth; the test set's hold 2
+    frames and depth."""
     dtype = data_conf["type"]
+    if dtype == "KITTI_360":
+        from behindthescenes_tpu_torch.datasets.kitti_360 import (
+            Kitti360Dataset)
+        return Kitti360Dataset.make_train_test(data_conf)
     if dtype != "Synthetic":
         raise NotImplementedError(
             f"dataset type {dtype!r} is not ported: ROADMAP Queue A item 7")

@@ -5,9 +5,9 @@
 
 Reads configs/<config>.yaml with its `defaults` and the overrides, and
 dispatches on `model`: bts (depth; `mode: nvs` adds the NVS metrics),
-bts_nvs (novel-view synthesis), bts_lidar and bts_3dbb (occupancy, not
-ported). Prints the mean metrics as one JSON line. Runs on the card
-unless --device says otherwise.
+bts_nvs (novel-view synthesis), bts_lidar and bts_3dbb (KITTI-360 LiDAR
+and 3D-box occupancy). Prints the mean metrics as one JSON line. Runs on
+the card unless --device says otherwise.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Evaluation task wiring (counterpart of
-behindthescenes_tpu/evaluation/tasks.py:15-54; reference
+behindthescenes_tpu/evaluation/tasks.py; reference
 models/bts/evaluator*.py evaluation() entry points). Each task runs on
 `device` (default: the card)."""
 from __future__ import annotations
@@ -63,16 +63,33 @@ def evaluate_nvs(config, device=None):
     return base_evaluation(config, _get_dataflow, make_evaluator)
 
 
+def _evaluate_occupancy(config, device, evaluator_cls):
+    """The occupancy tasks: the evaluator reads the dataset's sequences,
+    calibration and sweeps, so the dataset is made first and kept for it
+    (behindthescenes_tpu/evaluation/tasks.py:56-96)."""
+    ds = make_test_dataset(config["data"])
+
+    def get_dataflow(config):
+        return DataLoader(ds, batch_size=1,
+                          num_workers=config.get("num_workers", 2))
+
+    def make_evaluator(config):
+        net, rcfg = _net_and_cfg(config, device)
+        return evaluator_cls(net, rcfg, config["model_conf"], ds)
+
+    return base_evaluation(config, get_dataflow, make_evaluator)
+
+
 def evaluate_lidar_occ(config, device=None):
-    raise NotImplementedError(
-        "the lidar occupancy evaluation is not ported: ROADMAP Queue A "
-        "items 7 (the KITTI-360 loader) and 8")
+    from behindthescenes_tpu_torch.evaluation.lidar_occ import \
+        LidarOccEvaluator
+    return _evaluate_occupancy(config, device, LidarOccEvaluator)
 
 
 def evaluate_3dbb(config, device=None):
-    raise NotImplementedError(
-        "the 3D bounding-box occupancy evaluation is not ported: ROADMAP "
-        "Queue A items 7 (the KITTI-360 loader) and 8")
+    from behindthescenes_tpu_torch.evaluation.bbox_occ import \
+        BBoxOccEvaluator
+    return _evaluate_occupancy(config, device, BBoxOccEvaluator)
 
 
 TASKS = {"bts": evaluate_depth, "bts_nvs": evaluate_nvs,

@@ -20,12 +20,17 @@ from torch import nn
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
-    """`conv` with input and weights cast to the compute dtype."""
-    if x.dtype == dtype == conv.weight.dtype:
-        return conv(x)
-    bias = None if conv.bias is None else conv.bias.to(dtype)
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, conv.stride,
-                    conv.padding)
+    """`conv` with input and weights cast to the compute dtype. Below f32
+    the convolution is rounded before the bias is added, as Flax's Conv
+    adds it (a fused bias rounds once)."""
+    if dtype not in (torch.bfloat16, torch.float16) or conv.bias is None:
+        if x.dtype == dtype == conv.weight.dtype:
+            return conv(x)
+        bias = None if conv.bias is None else conv.bias.to(dtype)
+        return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias,
+                        conv.stride, conv.padding)
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride,
+                    conv.padding) + conv.bias.to(dtype)[:, None, None]
 
 
 class BatchNorm2d(nn.BatchNorm2d):

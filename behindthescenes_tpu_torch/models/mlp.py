@@ -25,10 +25,15 @@ from behindthescenes_tpu_torch.ops.kernels.shared_z import (
 
 def _dense(lin: nn.Linear, x: torch.Tensor, dtype=None) -> torch.Tensor:
     """`lin` computed in `dtype` (default: the promotion of the input's
-    and the parameters' dtypes, as a Flax Dense with dtype=None)."""
+    and the parameters' dtypes, as a Flax Dense with dtype=None). In bf16
+    the product is rounded before the bias is added, as Flax adds it: a
+    fused bias rounds once and lands one ulp off in about 15% of a query's
+    densities."""
     dt = dtype or torch.promote_types(x.dtype, lin.weight.dtype)
-    bias = None if lin.bias is None else lin.bias.to(dt)
-    return F.linear(x.to(dt), lin.weight.to(dt), bias)
+    if dt not in (torch.bfloat16, torch.float16) or lin.bias is None:
+        bias = None if lin.bias is None else lin.bias.to(dt)
+        return F.linear(x.to(dt), lin.weight.to(dt), bias)
+    return F.linear(x.to(dt), lin.weight.to(dt)) + lin.bias.to(dt)
 
 
 def _act(v, beta: float):

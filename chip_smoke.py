@@ -41,6 +41,20 @@ kernel, whose launches it counts). Phase 13 holds the fine pass's value
 on the thin-structure checkpoint: 8 coarse + 8 fine beats 16 flat, and
 reusing the coarse samples equals re-querying them.
 
+Then evaluates KITTI-360 occupancy with the synthetic-KITTI-360 checkpoint
+(media/weights/k360_synth_conv.npz: ResNet-50, 192x640, 64 samples) on the
+JAX package's occupancy gate drive, which the port generates and
+preprocesses on the host into a temporary directory
+(datasets/gen_synthetic_kitti_360.make_gate_tree): phase 14 the LiDAR
+occupancy of configs/eval_lidar_occ.yaml over its 4 keyframes in bf16
+(one jitter_density launch per keyframe) and over 1 keyframe in f32 (one
+selfview launch), phase 15 the 3D-box occupancy of configs/eval_3dbb.yaml
+over 2 frames (the pseudo-depth at 96x320: one jitter_density launch of
+30,720 rays per frame). Each launch is held against its plain version,
+the means to the JAX gate's bounds and to the JAX package's CPU means for
+the same command, and each frame's time is split into encode, pseudo-depth
+render, density query and host ground truth.
+
 Prints one progress line per phase (flushed, with the phase's seconds),
 then a JSON line of frame times, metrics and training times, one JSON line
 with a record per kernel, the card's name and power limit, and as the
@@ -52,8 +66,10 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 WEIGHTS = "media/weights/flagship_fast_conv.npz"
@@ -180,6 +196,50 @@ FINE_PROFILES = {
 FINE_MARGIN_MIN = 0.14
 REUSE_GAP_MAX = 0.05
 
+# Phases 14-15: the occupancy configs with the synthetic-KITTI-360
+# checkpoint on the occupancy gate's drive (make_gate_tree), each run
+# (phase, config, split directory, its keyframes, overrides, record)
+# launching the record's kernel once per keyframe (OCC_RECORDS) on
+# OCC_RAYS rays. The split directories other than `splits` (the 4
+# keyframes) hold the first keyframes of the gate.
+K360_WEIGHTS = "media/weights/k360_synth_conv.npz"
+OCC_RUNS = (
+    ("14", "eval_lidar_occ", "splits", (2, 5, 8, 11), (),
+     "jitter_density_lidar"),
+    ("14", "eval_lidar_occ", "splits_first1", (2,), ("bf16=false",),
+     "selfview_lidar"),
+    ("15", "eval_3dbb", "splits_first2", (2, 5), (), "jitter_density_bbox"),
+)
+OCC_RECORDS = {"jitter_density_lidar": "jitter_density",
+               "selfview_lidar": "selfview",
+               "jitter_density_bbox": "jitter_density"}
+OCC_RAYS = {"jitter_density_lidar": 192 * 640, "selfview_lidar": 192 * 640,
+            "jitter_density_bbox": 96 * 320}
+# The JAX package's means on the CPU for the same command on the tree its
+# own scripts generate (the gate's, scripts/datasets/
+# gen_synthetic_kitti_360.py and preprocess_kitti_360.py, with the split
+# files of make_gate_tree): `JAX_PLATFORMS=cpu python eval.py -cn <config>
+# checkpoint=media/weights/k360_synth_conv.npz data.data_path=<tree>
+# data.pose_path=<tree>/data_poses data.split_path=<tree>/<split>
+# data.is_preprocessed=true`. The two sides draw different jitter, which
+# moves only the predicted visibility mask; OCC_GAP bounds the gap.
+OCC_JAX_MEANS = {
+    "jitter_density_lidar": {"o_acc": 0.91767578125,
+                             "ie_prec": 0.649168194692345,
+                             "ie_rec": 0.4413175512777716},
+    "jitter_density_bbox": {"o_acc": 0.9152573529411765,
+                            "ie_prec": 0.6324734089439972,
+                            "ie_rec": 0.3125602285242291},
+}
+OCC_GAP = {"o_acc": 0.005, "ie_prec": 0.01, "ie_rec": 0.01}
+# The JAX occupancy gate's floors (tests/test_occupancy_gate.py:40-42 and
+# :140-141).
+OCC_FLOORS = {"jitter_density_lidar": {"o_acc": 0.85, "ie_prec": 0.55,
+                                       "ie_rec": 0.38},
+              "jitter_density_bbox": {"o_acc": 0.82, "ie_rec": 0.25}}
+OCC_METRICS = ("o_acc", "o_prec", "o_rec", "ie_acc", "ie_prec", "ie_rec")
+OCC_STAGES = ("encode", "render", "query", "ground_truth")
+
 _T0 = time.perf_counter()
 
 
@@ -226,7 +286,9 @@ def recorded_kernel_args():
     kernel wrapper that the serving path makes (models/mlp.py calls the
     wrappers by name), so that the kernels are checked and timed on the
     very inputs serving gives them. Yields ({mode: {kernel name: (args,
-    kwargs)}}, state); the caller sets state["mode"] before each mode."""
+    kwargs)}}, state); the caller sets state["mode"] before each mode, and
+    a list in state["calls"] gets every call's (kernel name, args,
+    kwargs)."""
     from behindthescenes_tpu_torch.models import mlp
     from behindthescenes_tpu_torch.ops import kernels
     record, saved, state = {}, {}, {"mode": None}
@@ -237,6 +299,8 @@ def recorded_kernel_args():
 
         def recorder(*args, _name=name, _fn=fn, **kwargs):
             record.setdefault(state["mode"], {})[_name] = (args, kwargs)
+            if state.get("calls") is not None:
+                state["calls"].append((_name, args, kwargs))
             return _fn(*args, **kwargs)
         saved[fn.__name__] = fn
         setattr(mlp, fn.__name__, recorder)
@@ -310,6 +374,91 @@ def work(name: str, args, kwargs):
     return (2 * b * h + 8 * b * k + 2 * (n_code + 2) * h + 4,
             {BF16_FLOP_S: b * k * products, BF16_VEC_FLOP_S: b * k * add_relu,
              F32_FLOP_S: b * k * code})
+
+
+def plain_version(kernel: str):
+    """The plain PyTorch version of a kernel wrapper."""
+    from behindthescenes_tpu_torch.ops.kernels.jitter_density import \
+        jitter_density_plain
+    from behindthescenes_tpu_torch.ops.kernels.selfview import \
+        selfview_density_plain
+    from behindthescenes_tpu_torch.ops.kernels.shared_z import \
+        shared_z_tail_plain
+    return {"shared_z": shared_z_tail_plain,
+            "selfview": selfview_density_plain,
+            "jitter_density": jitter_density_plain}[kernel]
+
+
+def plain_reference(rec: str, kernel: str, args, kwargs):
+    """The kernel's plain version on its arguments: jitter_density as it
+    runs (bf16 rounding at the kernel's places), the others in float64."""
+    import torch
+    plain = plain_version(kernel)
+    if rec == "jitter_density":
+        return plain(*args, **kwargs)
+    return plain(*(a.double() if torch.is_tensor(a)
+                   and a.dtype == torch.float32 else a for a in args),
+                 **kwargs)
+
+
+def against_plain(rec: str, kernel: str, args, kwargs, label: str):
+    """The kernel (through its wrapper) against its plain version on the
+    same arguments, within TOLERANCE[rec]. Returns (max abs deviation,
+    max |out|, the output's shape); raises on another shape, a value that
+    is not finite or a deviation beyond the tolerance."""
+    import torch
+    from behindthescenes_tpu_torch.ops import kernels
+    with torch.no_grad():
+        got = kernels.KERNELS[kernel](*args, **kwargs)
+        want = plain_reference(rec, kernel, args, kwargs).float()
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{rec} ({label}): shape {tuple(got.shape)} "
+                             f"vs {tuple(want.shape)} or not finite")
+    atol, rtol = TOLERANCE[rec]
+    dev_abs = (got - want).abs()
+    max_dev = dev_abs.max().item()
+    if (dev_abs - atol - rtol * want.abs()).max().item() > 0:
+        raise AssertionError(f"{rec} ({label}): kernel and plain version "
+                             f"disagree beyond tolerance (max abs "
+                             f"{max_dev:.3e})")
+    return max_dev, want.abs().max().item(), tuple(got.shape)
+
+
+def kernel_record(name: str, rec: str, kernel: str, args, kwargs,
+                  launches: int, max_abs_err: float, mode: str,
+                  resources: dict) -> dict:
+    """The kernel's line of the kernels record: its time and its plain
+    version's on these arguments (CUDA events), and its bound from work()
+    of the record `rec`; prints it."""
+    from behindthescenes_tpu_torch.ops import kernels
+    ms_kernel = cuda_ms(lambda: kernels.KERNELS[kernel](*args, **kwargs),
+                        iters=20)
+    ms_plain = cuda_ms(lambda: plain_version(kernel)(*args, **kwargs),
+                       iters=5, warmup=1)
+    nbytes, flops = work(rec, args, kwargs)
+    flop = sum(flops.values())
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = sum(n / peak for peak, n in flops.items()) * 1e3
+    bound = max(t_bytes, t_ops)
+    source, replaces = KERNEL_META[rec]
+    out = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches,
+           "max_abs_err": max_abs_err, "ms": ms_kernel,
+           "plain_ms": ms_plain, "bound_ms": bound,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None, "mode": mode,
+           "share_of_bound": bound / ms_kernel,
+           "registers": resources.get("registers"),
+           "spill_bytes": resources.get("spill_stores", 0)
+           + resources.get("spill_loads", 0)}
+    print(f"[chip_smoke] {name} ({mode}): kernel {ms_kernel:.4f} ms, "
+          f"{100 * bound / ms_kernel:.1f}% of its bound {bound:.4f} ms "
+          f"({out['bound_by']}; {nbytes / 1e6:.1f} MB, {flop / 1e9:.2f} "
+          f"GFLOP); plain {ms_plain:.4f} ms; {out['registers']} registers, "
+          f"{out['spill_bytes']} spill bytes", flush=True)
+    return out
 
 
 def train_batch(conf: dict) -> dict:
@@ -503,10 +652,15 @@ def general_depth(net, batches, selfview_per_scene, generator) -> dict:
 def recorded_evaluations():
     """Records every call the task runner makes to an evaluator's
     `evaluate`: yields the list of (evaluator, batch, metrics)."""
+    from behindthescenes_tpu_torch.evaluation.bbox_occ import \
+        BBoxOccEvaluator
     from behindthescenes_tpu_torch.evaluation.depth import DepthEvaluator
+    from behindthescenes_tpu_torch.evaluation.lidar_occ import \
+        LidarOccEvaluator
     from behindthescenes_tpu_torch.evaluation.nvs import NVSEvaluator
     calls, saved = [], {}
-    for cls in (DepthEvaluator, NVSEvaluator):
+    for cls in (DepthEvaluator, NVSEvaluator, LidarOccEvaluator,
+                BBoxOccEvaluator):
         saved[cls] = cls.evaluate
 
         def recorder(self, batch, *args, _fn=cls.evaluate, **kwargs):
@@ -674,6 +828,147 @@ def config_phases(dev, card: str, clock_fn, overrides=(),
     return configs, fine
 
 
+def write_occupancy_splits(tree: str, frames: int) -> None:
+    """The split directories of OCC_RUNS beside make_gate_tree's `splits`,
+    in a tree of `frames` frames."""
+    from behindthescenes_tpu_torch.datasets import \
+        gen_synthetic_kitti_360 as gen
+    for _, _, split, keyframes, _, _ in OCC_RUNS:
+        if split != "splits":
+            gen.write_splits(tree, gen.GATE_SEQ, list(keyframes), frames,
+                             split)
+
+
+def occupancy_stage_ms(calls, clock) -> list:
+    """Each recorded item evaluated once more with the generator of the
+    task run (seed = its place), its stages marked by `clock`: per item
+    the ms of OCC_STAGES and of the whole item."""
+    import torch
+    out = []
+    for i, (ev, batch, _) in enumerate(calls):
+        gen = torch.Generator(device=next(ev.net.parameters()).device)
+        gen.manual_seed(i)
+        events = [("start", clock())]
+        ev.evaluate(batch, generator=gen,
+                    mark=lambda name: events.append((name, clock())))
+        clock.sync()
+        names = [n for n, _ in events]
+        if names != ["start", *OCC_STAGES]:
+            raise AssertionError(f"stages {names}")
+        split = {name: clock.ms(a, b)
+                 for (_, a), (name, b) in zip(events, events[1:])}
+        split["item"] = clock.ms(events[0][1], events[-1][1])
+        out.append(split)
+    return out
+
+
+def occupancy_phase(tree: str, name: str, split: str, keyframes,
+                    overrides, record: str, dev, clock, extra=()):
+    """One run of OCC_RUNS: configs/NAME with K360_WEIGHTS on the tree's
+    split through the task runner, then each item again with its stages
+    timed. Raises unless the record's kernel was launched once per
+    keyframe, each time on OCC_RAYS[record] rays and within tolerance of
+    its plain version, and no other kernel was; unless every mean is
+    finite; and unless the means meet OCC_FLOORS and lie within OCC_GAP
+    of OCC_JAX_MEANS, where the record has them. Returns (the record of
+    the run, the (kernel, args, kwargs) of its first launch)."""
+    import math
+    import torch
+    from behindthescenes_tpu_torch.ops import kernels
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with recorded_kernel_args() as (_, state):
+        state["mode"], state["calls"] = record, []
+        _, means, calls = config_eval(name, K360_WEIGHTS, dev, (
+            f"data.data_path={tree}",
+            f"data.pose_path={os.path.join(tree, 'data_poses')}",
+            f"data.split_path={os.path.join(tree, split)}",
+            "data.is_preprocessed=true", *overrides, *extra))
+    launched = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    kernel, n = OCC_RECORDS[record], len(keyframes)
+    want = {k: n if k == kernel else 0 for k in launched}
+    if launched != want:
+        raise AssertionError(f"{name} ({record}): kernel launches "
+                             f"{launched}, want {want}")
+    launch_calls = state["calls"]
+    rays = [(args[1] if kernel == "selfview" else args[0]).shape[0]
+            for _, args, _ in launch_calls]
+    if [k for k, _, _ in launch_calls] != [kernel] * n or \
+            rays != [OCC_RAYS[record]] * n:
+        raise AssertionError(f"{name} ({record}): calls of "
+                             f"{[k for k, _, _ in launch_calls]} on {rays} "
+                             f"rays, want {n} of {kernel} on "
+                             f"{OCC_RAYS[record]}")
+    errs = [against_plain(kernel, kernel, args, kwargs,
+                          f"{record} launch {i}")[0]
+            for i, (_, args, kwargs) in enumerate(launch_calls)]
+    if len(calls) != n or not all(math.isfinite(means[k])
+                                  for k in OCC_METRICS):
+        raise AssertionError(f"{name} ({record}): {len(calls)} items, "
+                             f"means {means}")
+    res = {"config": name, "record": record, "split": split,
+           "keyframes": list(keyframes), "overrides": list(overrides),
+           "means": means, "per_item": [out for _, _, out in calls],
+           "launches": launched, "launch_rays": rays,
+           "max_abs_err": errs, "peak_memory": peak}
+    for k, want_k in OCC_JAX_MEANS.get(record, {}).items():
+        res[f"gap_{k}"] = means[k] - want_k
+        if not abs(means[k] - want_k) <= OCC_GAP[k]:
+            raise AssertionError(f"{name}: {k} {means[k]:.6f} vs JAX "
+                                 f"{want_k:.6f} (bound {OCC_GAP[k]})")
+    for k, floor in OCC_FLOORS.get(record, {}).items():
+        if not means[k] > floor:
+            raise AssertionError(f"{name}: {k} {means[k]:.4f} under the "
+                                 f"JAX gate's {floor}")
+    res["stage_ms"] = occupancy_stage_ms(calls, clock)
+    return res, launch_calls[0]
+
+
+def occupancy_phases(tree: str, dev, card: str, clock_fn, extra=()):
+    """Phases 14-15: every run of OCC_RUNS on `tree` (with the split
+    directories of write_occupancy_splits), with the `extra` overrides,
+    printing each run's means against JAX's and the gates, its launches
+    and peak memory, and each item's stages. Returns [(record, first
+    launch)]."""
+    out = []
+    for phase, name, split, keyframes, overrides, record in OCC_RUNS:
+        t = time.perf_counter()
+        res, launch = occupancy_phase(tree, name, split, keyframes,
+                                      overrides, record, dev, clock_fn(),
+                                      extra)
+        out.append((res, launch))
+        jax_means = OCC_JAX_MEANS.get(record, {})
+        peak = res["peak_memory"]
+        print(f"[chip_smoke] {' '.join((name, *overrides))} ({record}, "
+              f"{card}): "
+              + ", ".join(f"{k} {res['means'][k]:.6f}"
+                          + (f" (JAX on the CPU {jax_means[k]:.6f}, gap "
+                             f"{res['gap_' + k]:+.6f}, bound {OCC_GAP[k]})"
+                             if k in jax_means else "")
+                          for k in OCC_METRICS)
+              + "; per keyframe "
+              + json.dumps([[round(m[k], 6) for k in OCC_METRICS]
+                            for m in res["per_item"]])
+              + f"; launches {json.dumps(res['launches'])} on "
+              f"{res['launch_rays']} rays, max abs deviation from the "
+              f"plain version {max(res['max_abs_err']):.3e}; peak memory "
+              + ("not measured" if peak is None
+                 else f"{peak / 2**30:.2f} GiB"), flush=True)
+        for kf, st in zip(keyframes, res["stage_ms"]):
+            print(f"[chip_smoke] {name} ({record}) keyframe {kf} ({card}): "
+                  + ", ".join(f"{k} {st[k]:.3f} ms" for k in OCC_STAGES)
+                  + f"; item {st['item']:.3f} ms", flush=True)
+        host = sum(st["ground_truth"] for st in res["stage_ms"])
+        total = sum(st["item"] for st in res["stage_ms"])
+        log(f"phase {phase} {name} ({record})",
+            f"within the gates and JAX's means; host ground truth "
+            f"{100 * host / total:.1f}% of the items' time", t)
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -684,12 +979,6 @@ def main() -> None:
     from behindthescenes_tpu_torch import eval_depth
     from behindthescenes_tpu_torch.ops import kernels
     from behindthescenes_tpu_torch.ops.kernels import _build
-    from behindthescenes_tpu_torch.ops.kernels.jitter_density import \
-        jitter_density_plain
-    from behindthescenes_tpu_torch.ops.kernels.selfview import \
-        selfview_density_plain
-    from behindthescenes_tpu_torch.ops.kernels.shared_z import \
-        shared_z_tail_plain
     from behindthescenes_tpu_torch.platform import resolve_device
 
     # -- 1: the card and the kernels' build --------------------------------
@@ -760,9 +1049,6 @@ def main() -> None:
 
     # -- 5: each kernel against its plain version -------------------------
     t = time.perf_counter()
-    plain = {"shared_z": shared_z_tail_plain,
-             "selfview": selfview_density_plain,
-             "jitter_density": jitter_density_plain}
     # (label, record, kernel, args, kwargs): each mode's own arguments,
     # then every kernel on ragged cuts of them, at each H it is built for,
     # and shared_z and jitter_density at a width, and jitter_density at
@@ -781,37 +1067,17 @@ def main() -> None:
                                            kwargs, n))
                       for n in RAGGED_OCTAVES]
 
-    def reference(rec, kernel, args, kwargs):
-        if rec == "jitter_density":
-            return plain[kernel](*args, **kwargs)
-        return plain[kernel](*(a.double() if torch.is_tensor(a)
-                               and a.dtype == torch.float32 else a
-                               for a in args), **kwargs)
     err = {}
-    with torch.no_grad():
-        for label, rec, kernel, args, kwargs in cases:
-            got = kernels.KERNELS[kernel](*args, **kwargs)
-            want = reference(rec, kernel, args, kwargs).float()
-            torch.cuda.synchronize()
-            if got.shape != want.shape or not torch.isfinite(got).all():
-                raise AssertionError(f"{rec} ({label}): shape "
-                                     f"{tuple(got.shape)} vs "
-                                     f"{tuple(want.shape)} or not finite")
-            atol, rtol = TOLERANCE[rec]
-            dev_abs = (got - want).abs()
-            max_dev = dev_abs.max().item()
-            if label in serving:
-                err[rec] = max_dev
-            excess = (dev_abs - atol - rtol * want.abs()).max().item()
-            print(f"[chip_smoke] {rec} ({label}) at {tuple(got.shape)}: "
-                  f"max abs deviation {max_dev:.3e} from the plain version "
-                  f"({'bf16' if rec == 'jitter_density' else 'float64'}; "
-                  f"atol {atol}, rtol {rtol}); max |out| "
-                  f"{want.abs().max().item():.3f}", flush=True)
-            if excess > 0:
-                raise AssertionError(f"{rec} ({label}): kernel and plain "
-                                     f"version disagree beyond tolerance "
-                                     f"(max abs {max_dev:.3e})")
+    for label, rec, kernel, args, kwargs in cases:
+        max_dev, max_out, shape = against_plain(rec, kernel, args, kwargs,
+                                                label)
+        if label in serving:
+            err[rec] = max_dev
+        atol, rtol = TOLERANCE[rec]
+        print(f"[chip_smoke] {rec} ({label}) at {shape}: max abs deviation "
+              f"{max_dev:.3e} from the plain version "
+              f"({'bf16' if rec == 'jitter_density' else 'float64'}; atol "
+              f"{atol}, rtol {rtol}); max |out| {max_out:.3f}", flush=True)
     log("phase 5 kernels vs plain", "all within tolerance", t)
 
     # -- 6: timing ---------------------------------------------------------
@@ -821,35 +1087,9 @@ def main() -> None:
         for label, rec, kernel, args, kwargs in cases:
             if label not in serving:
                 continue
-            ms_kernel = cuda_ms(lambda: kernels.KERNELS[kernel](*args,
-                                                                **kwargs),
-                                iters=20)
-            ms_plain = cuda_ms(lambda: plain[kernel](*args, **kwargs),
-                               iters=5, warmup=1)
-            nbytes, flops = work(rec, args, kwargs)
-            flop = sum(flops.values())
-            t_bytes = nbytes / HBM_BYTES_S * 1e3
-            t_ops = sum(n / peak for peak, n in flops.items()) * 1e3
-            bound = max(t_bytes, t_ops)
-            source, replaces = KERNEL_META[rec]
-            res = resources[rec]
-            records.append({
-                "name": rec, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": mode_launches[label],
-                "max_abs_err": err[rec], "ms": ms_kernel,
-                "plain_ms": ms_plain, "bound_ms": bound,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None, "mode": label,
-                "share_of_bound": bound / ms_kernel,
-                "registers": res.get("registers"),
-                "spill_bytes": res.get("spill_stores", 0)
-                + res.get("spill_loads", 0)})
-            print(f"[chip_smoke] {rec} ({label}): kernel {ms_kernel:.4f} "
-                  f"ms, {100 * bound / ms_kernel:.1f}% of its bound "
-                  f"{bound:.4f} ms ({records[-1]['bound_by']}; "
-                  f"{nbytes / 1e6:.1f} MB, {flop / 1e9:.2f} GFLOP); plain "
-                  f"{ms_plain:.4f} ms; {res.get('registers')} registers, "
-                  f"{records[-1]['spill_bytes']} spill bytes", flush=True)
+            records.append(kernel_record(
+                rec, rec, kernel, args, kwargs, mode_launches[label],
+                err[rec], label, resources[rec]))
         frame_ms, encode_ms = {}, {}
         height, width = eval_depth.IMAGE_SIZE
         n_coarse = eval_depth.FLAGSHIP_RENDERER.n_coarse
@@ -932,10 +1172,30 @@ def main() -> None:
     # -- 10-13: configs through the port's task runner ---------------------
     configs, fine = config_phases(dev, card, cuda_clock)
 
+    # -- 14, 15: KITTI-360 occupancy on the gate drive ---------------------
+    from behindthescenes_tpu_torch.datasets.gen_synthetic_kitti_360 import \
+        GATE_FRAMES, make_gate_tree
+    with tempfile.TemporaryDirectory(prefix="k360_gate_") as tree:
+        t = time.perf_counter()
+        make_gate_tree(tree)
+        write_occupancy_splits(tree, GATE_FRAMES)
+        log("phase 14 tree", "the occupancy gate's drive generated and "
+            "preprocessed on the host", t)
+        occupancy = occupancy_phases(tree, dev, card, cuda_clock)
+    t = time.perf_counter()
+    for res, (kernel, args, kwargs) in occupancy:
+        records.append(kernel_record(
+            res["record"], kernel, kernel, args, kwargs,
+            res["launches"][kernel], max(res["max_abs_err"]),
+            " ".join((res["config"], *res["overrides"])),
+            resources[kernel]))
+    log("phase 15 timing", card, t)
+
     print(json.dumps({"frame_ms": frame_ms, "encode_ms": encode_ms,
                       "serving": serving, "general_path": general["means"],
                       "train_parity": parity, "training": training,
-                      "configs": configs, "fine_pass": fine}),
+                      "configs": configs, "fine_pass": fine,
+                      "occupancy": [res for res, _ in occupancy]}),
           flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)

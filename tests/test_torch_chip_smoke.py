@@ -302,3 +302,127 @@ def test_config_phase_bounds_fail_the_run(monkeypatch):
     with pytest.raises(AssertionError, match="beats 16 flat"):
         cs.fine_value("cpu", ("data.image_size=[24, 32]",
                               *cs.THIN_OVERRIDES))
+
+
+# -- phases 14-15 rehearsed on the CPU at a cut size -----------------------
+# The gate drive cut to 6 frames at 1/8 of the reference resolution, its raw
+# frames loaded at 32x96; one keyframe per run.
+CUT_FRAMES = 6
+CUT_HW = (32, 96)
+CUT_RUNS = tuple((phase, name, split, (2,), overrides, record)
+                 for phase, name, split, _, overrides, record in cs.OCC_RUNS)
+CUT_EXTRA = (f"data.image_size=[{CUT_HW[0]}, {CUT_HW[1]}]",
+             "data.is_preprocessed=false")
+
+
+def _count_calls(monkeypatch, name):
+    """The kernel wrapper `name`, where models/mlp.py and the kernel table
+    call it, counting its calls as launches (on the CPU the wrapper runs
+    its plain version and counts nothing)."""
+    import functools
+    from behindthescenes_tpu_torch.models import mlp
+    from behindthescenes_tpu_torch.ops import kernels
+    fn = kernels.KERNELS[name]
+
+    @functools.wraps(fn)
+    def counted(*args, **kwargs):
+        counted.launches += 1
+        return fn(*args, **kwargs)
+    counted.launches = 0
+    monkeypatch.setitem(kernels.KERNELS, name, counted)
+    monkeypatch.setattr(mlp, fn.__name__, counted)
+
+
+@pytest.fixture(scope="module")
+def gate_tree_cut(tmp_path_factory):
+    from behindthescenes_tpu_torch.datasets.gen_synthetic_kitti_360 import \
+        make_gate_tree
+    tree = str(make_gate_tree(tmp_path_factory.mktemp("gate") / "tree",
+                              frames=CUT_FRAMES, scale=0.125,
+                              keyframes=(2,)))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cs, "OCC_RUNS", CUT_RUNS)
+        cs.write_occupancy_splits(tree, CUT_FRAMES)
+    return tree
+
+
+def _cut(monkeypatch):
+    """Phases 14-15 at the cut: one keyframe per run, its rays at CUT_HW,
+    launches counted; the JAX means and the gate floors are those of the
+    full size, so they move out of the way."""
+    monkeypatch.setattr(cs, "OCC_RUNS", CUT_RUNS)
+    monkeypatch.setattr(cs, "OCC_RAYS", {
+        "jitter_density_lidar": CUT_HW[0] * CUT_HW[1],
+        "selfview_lidar": CUT_HW[0] * CUT_HW[1],
+        "jitter_density_bbox": CUT_HW[0] // 2 * CUT_HW[1] // 2})
+    for name in ("jitter_density", "selfview", "shared_z"):
+        _count_calls(monkeypatch, name)
+    monkeypatch.chdir(ROOT)
+
+
+def test_occupancy_phases_rehearsed(gate_tree_cut, monkeypatch, capsys):
+    """Phases 14-15 as main() runs them: each run through the task runner
+    with the k360 checkpoint, its kernel launched once per keyframe on
+    its rays and held against its plain version, the means printed beside
+    JAX's, and each keyframe's stages split."""
+    _cut(monkeypatch)
+    monkeypatch.setattr(cs, "OCC_GAP", dict.fromkeys(cs.OCC_GAP, 1e9))
+    monkeypatch.setattr(cs, "OCC_FLOORS", {})
+    out = cs.occupancy_phases(gate_tree_cut, "cpu", "host", _HostClock,
+                              extra=CUT_EXTRA)
+    assert [res["record"] for res, _ in out] == \
+        ["jitter_density_lidar", "selfview_lidar", "jitter_density_bbox"]
+    for res, (kernel, args, kwargs) in out:
+        assert kernel == cs.OCC_RECORDS[res["record"]]
+        assert res["launches"][kernel] == 1
+        assert sum(res["launches"].values()) == 1
+        # the plain version against itself (selfview's in float64)
+        assert len(res["max_abs_err"]) == 1
+        assert res["max_abs_err"][0] <= cs.TOLERANCE[kernel][0]
+        assert set(cs.OCC_METRICS) <= set(res["means"])
+        assert len(res["stage_ms"]) == 1
+        assert set(res["stage_ms"][0]) == {*cs.OCC_STAGES, "item"}
+        nbytes, flops = cs.work(kernel, args, kwargs)
+        assert nbytes > 0 and sum(flops.values()) > 0
+        if res["record"] in cs.OCC_JAX_MEANS:
+            assert set(cs.OCC_JAX_MEANS[res["record"]]) <= \
+                {k[4:] for k in res if k.startswith("gap_")}
+    printed = capsys.readouterr().out
+    assert printed.count("keyframe 2 (host)") == 3
+    assert "host ground truth" in printed
+
+
+def test_occupancy_bounds_fail_the_run(gate_tree_cut, monkeypatch):
+    """A mean outside its bound of JAX's fails the phase, and so does a
+    launch count other than one per keyframe."""
+    _cut(monkeypatch)
+    monkeypatch.setattr(cs, "OCC_GAP", dict.fromkeys(cs.OCC_GAP, 0.0))
+    monkeypatch.setattr(cs, "OCC_FLOORS", {})
+    phase, name, split, keyframes, overrides, record = CUT_RUNS[2]
+    with pytest.raises(AssertionError, match="vs JAX"):
+        cs.occupancy_phase(gate_tree_cut, name, split, keyframes, overrides,
+                           record, "cpu", _HostClock(), CUT_EXTRA)
+    with pytest.raises(AssertionError, match="kernel launches"):
+        cs.occupancy_phase(gate_tree_cut, name, split, (2, 5), overrides,
+                           record, "cpu", _HostClock(), CUT_EXTRA)
+
+
+def test_occupancy_runs_name_their_records():
+    """Every occupancy record maps to a kernel with a tolerance, a source,
+    the TPU kernel it replaces and a ptxas name; the runs' JAX means and
+    floors use the gate's keyframes and the bounds the gate test sets."""
+    from behindthescenes_tpu_torch.datasets import \
+        gen_synthetic_kitti_360 as gen
+    for *_, record in cs.OCC_RUNS:
+        base = cs.OCC_RECORDS[record]
+        assert base in cs.TOLERANCE and base in cs.KERNEL_META
+        assert base in cs.PTXAS_NAME
+    lidar, lidar32, bbox = cs.OCC_RUNS
+    assert lidar[3] == gen.GATE_KEYFRAMES and lidar[2] == "splits"
+    assert lidar32[3] == bbox[3][:1] == gen.GATE_KEYFRAMES[:1]
+    assert bbox[3] == gen.GATE_KEYFRAMES[:2]
+    assert cs.OCC_FLOORS == {
+        "jitter_density_lidar": {"o_acc": 0.85, "ie_prec": 0.55,
+                                 "ie_rec": 0.38},
+        "jitter_density_bbox": {"o_acc": 0.82, "ie_rec": 0.25}}
+    assert cs.OCC_RAYS["jitter_density_bbox"] == 30720

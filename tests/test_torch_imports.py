@@ -81,3 +81,16 @@ def test_chip_smoke_alone_fails_without_output(tmp_path):
                           timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_source_scan_covers_the_kitti360_path():
+    """The scan and the blocked-import probe reach the KITTI-360 loader,
+    its PNG and resize code, the occupancy evaluators and the port's own
+    tree generator and preprocessor (which replace scripts that import
+    cv2 and yaml)."""
+    scanned = {os.path.relpath(p, PORT) for p in _sources()}
+    assert {os.path.join("datasets", f) for f in (
+        "png.py", "kitti_360.py", "kitti_360_labels.py",
+        "gen_synthetic_kitti_360.py", "preprocess_kitti_360.py")} \
+        | {os.path.join("evaluation", f) for f in (
+            "lidar_occ.py", "bbox_occ.py")} <= scanned
