@@ -530,12 +530,15 @@ def write_splits(out, seq, test_keyframes, n_frames, name="splits"):
 
 
 def make_gate_tree(out, frames=GATE_FRAMES, scale=GATE_SCALE,
-                   seed=GATE_SEED, keyframes=GATE_KEYFRAMES):
+                   seed=GATE_SEED, keyframes=GATE_KEYFRAMES,
+                   fisheye_rotation=None):
     """The JAX package's occupancy gate tree (tests/test_occupancy_gate.py:
     28-63): `frames` frames of GATE_SEQ from `seed` at `scale` of the
     reference resolution, the perspective frames preprocessed to 192x640
-    (`preprocess_kitti_360.preprocess`), the test split of `keyframes`
-    and a training split of the other frames in splits/. Returns `out`."""
+    (`preprocess_kitti_360.preprocess`), and the fisheye frames too at
+    `fisheye_rotation` (r0, r1) where it is given; the test split of
+    `keyframes` and a training split of the other frames in splits/.
+    Returns `out`."""
     from behindthescenes_tpu_torch.datasets.preprocess_kitti_360 import \
         preprocess
     generate_tree(out, n_frames=frames, seed=seed, seq=GATE_SEQ,
@@ -543,7 +546,7 @@ def make_gate_tree(out, frames=GATE_FRAMES, scale=GATE_SCALE,
                   wp=int(round(WP_REF * scale)),
                   hf=int(round(HF_REF * scale)),
                   wf=int(round(WF_REF * scale)))
-    preprocess(out)
+    preprocess(out, fisheye_rotation=fisheye_rotation)
     write_splits(out, GATE_SEQ, list(keyframes), frames)
     return out
 

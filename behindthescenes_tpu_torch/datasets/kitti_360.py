@@ -2,15 +2,18 @@
 behindthescenes_tpu/datasets/kitti_360.py; reference
 datasets/kitti_360/kitti_360_dataset.py).
 
-The perspective path: two rectified cameras (image_00/01), mono or stereo,
-raw (`data_rect`, resized here) or preprocessed (`data_<h>x<w>`), with the
-calibration chain cam <-> pose <-> velo, velodyne depth, 3D bounding
-boxes and semantic segmentation maps. Images are read by the port's own
-PNG reader and resized with OpenCV's semantics (`datasets/png.py`); the
-fisheye calibration is read by the port's YAML parser (`config.loads`).
-Fisheye frames load only when preprocessed: resampling raw fisheye frames
-to pinhole (cv2.remap) and colour augmentation are not ported and raise
-NotImplementedError.
+Four cameras per frame: two rectified perspective (image_00/01), mono or
+stereo, raw (`data_rect`, resized here) or preprocessed (`data_<h>x<w>`),
+and two fisheye (image_02/03), resampled to pinhole here through the
+mirror and distortion model (`datasets/remap.py`, OpenCV's remap) or
+preprocessed (`data_<h>x<w>_<r0>x<r1>`); the calibration chain
+cam <-> pose <-> velo, velodyne depth, 3D bounding boxes, semantic
+segmentation maps, and the colour augmentation of training
+(`datasets/augmentation.py`, one jitter per item from the dataset's
+`seed` generator, applied to every view). Images are read by the port's
+own PNG reader and resized with OpenCV's semantics (`datasets/png.py`);
+the fisheye calibration is read by the port's YAML parser
+(`config.loads`).
 
 Data-dict ABI: imgs (v, h, w, 3) in [-1, 1] NHWC, projs (v, 3, 3) NDC,
 poses (v, 4, 4) c2w, plus depths / 3d_bboxes / segs / ts / index.
@@ -26,11 +29,11 @@ from typing import Optional
 import numpy as np
 
 from behindthescenes_tpu_torch.config import loads as yaml_loads
+from behindthescenes_tpu_torch.datasets.augmentation import \
+    sample_color_jitter
 from behindthescenes_tpu_torch.datasets.png import (read_png, resize_linear,
                                                     resize_nearest)
-
-_NOT_PORTED = ("is not ported: ROADMAP Queue A item 7 (the fisheye "
-               "resampler and colour augmentation)")
+from behindthescenes_tpu_torch.datasets.remap import remap_linear
 
 
 def parse_calib_file(path):
@@ -79,8 +82,8 @@ class FisheyeToPinholeSampler:
     """Fisheye -> pinhole resample map (reference kitti_360_dataset.py:
     21-69): the MEI mirror model and radial distortion map the target
     pinhole rays to fisheye pixels (align_corners=True). The map is built
-    as the JAX loader builds it; the resample itself (cv2.remap) is not
-    ported."""
+    as the JAX loader builds it and the resample is OpenCV's bilinear
+    remap with a zero border (`remap_linear`)."""
 
     def __init__(self, k_target, target_image_size, calibs, rotation=None):
         h, w = target_image_size
@@ -115,9 +118,7 @@ class FisheyeToPinholeSampler:
             .astype(np.float32)
 
     def resample(self, img: np.ndarray) -> np.ndarray:
-        raise NotImplementedError(f"the fisheye resample (cv2.remap) "
-                                  f"{_NOT_PORTED}; preprocessed fisheye "
-                                  "frames load without it")
+        return remap_linear(img, self.map_x, self.map_y)
 
 
 class KITTI360Bbox3D:
@@ -179,9 +180,6 @@ class Kitti360Dataset:
                  frame_count=2, keyframe_offset=0, dilation=1,
                  fisheye_rotation=0, fisheye_offset=0, eigen_depth=True,
                  color_aug=False, is_preprocessed=False, seed=0):
-        # `seed` seeds the colour augmentation, which is not ported.
-        if color_aug:
-            raise NotImplementedError(f"color_aug {_NOT_PORTED}")
         self.data_path = data_path
         self.pose_path = pose_path
         self.split_path = split_path
@@ -195,8 +193,10 @@ class Kitti360Dataset:
         self.dilation = dilation
         self.keyframe_offset = keyframe_offset
         self.eigen_depth = eigen_depth
+        self.color_aug = color_aug
         self.is_preprocessed = is_preprocessed
         self.fisheye_offset = fisheye_offset
+        self._rng = np.random.default_rng(seed)
 
         if isinstance(fisheye_rotation, (int, float)):
             fisheye_rotation = (0, fisheye_rotation)
@@ -437,12 +437,14 @@ class Kitti360Dataset:
             img = np.repeat(img[..., None], 3, -1)
         return img.astype(np.float32) / 255.0
 
-    def _process_img(self, img, resampler=None):
+    def _process_img(self, img, color_aug_fn=None, resampler=None):
         if resampler is not None and not self.is_preprocessed:
             img = resampler.resample(img)
         elif self.target_image_size and \
                 img.shape[:2] != self.target_image_size:
             img = resize_linear(img, self.target_image_size)
+        if color_aug_fn is not None:
+            img = color_aug_fn(img)
         return img * 2.0 - 1.0
 
     def load_depth(self, seq, img_id, is_right):
@@ -526,23 +528,27 @@ class Kitti360Dataset:
         img_ids = [self._img_ids[seq][i] for i in ids]
         img_ids_fish = [self._img_ids[seq][i] for i in ids_fish]
 
+        # One jitter per item, drawn before any image is read (the JAX
+        # loader's order), applied to every view.
+        aug = sample_color_jitter(self._rng) if self.color_aug else None
+
         imgs_p_l, imgs_p_r, imgs_f_l, imgs_f_r = [], [], [], []
         for img_id in img_ids:
             if load_left:
                 imgs_p_l.append(self._process_img(self._load_image(
-                    seq, "image_00", self._perspective_folder, img_id)))
+                    seq, "image_00", self._perspective_folder, img_id), aug))
             if load_right:
                 imgs_p_r.append(self._process_img(self._load_image(
-                    seq, "image_01", self._perspective_folder, img_id)))
+                    seq, "image_01", self._perspective_folder, img_id), aug))
         for img_id in img_ids_fish:
             if load_left:
                 imgs_f_l.append(self._process_img(
                     self._load_image(seq, "image_02", self._fisheye_folder,
-                                     img_id), self._resampler_02))
+                                     img_id), aug, self._resampler_02))
             if load_right:
                 imgs_f_r.append(self._process_img(
                     self._load_image(seq, "image_03", self._fisheye_folder,
-                                     img_id), self._resampler_03))
+                                     img_id), aug, self._resampler_03))
 
         calibs = self._calibs
         poses_seq = self._poses[seq]

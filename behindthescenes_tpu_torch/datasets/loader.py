@@ -1,53 +1,79 @@
 """Host-side batching (counterpart of
-behindthescenes_tpu/datasets/loader.py:18-40): batches of consecutive
-items, collated, with optional thread prefetch."""
+behindthescenes_tpu/datasets/loader.py:20-116): shuffling, batching and a
+thread pool that makes items ahead of the caller and hands the batches
+over in order.
+"""
 from __future__ import annotations
 
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
+import numpy as np
+
 from behindthescenes_tpu_torch.datasets.synthetic import collate
 
 
-# Batches made ahead of the caller when the loader has workers.
-PREFETCH = 2
-
-
 class DataLoader:
-    """Items 0..len-1 in order, `batch_size` at a time (the last batch may
-    be short). With num_workers > 0, a pool of that many threads makes the
-    items of the next PREFETCH batches while the caller works on the
-    current one."""
+    """Batches of `batch_size` items, collated. shuffle: each epoch's order
+    is a permutation drawn from default_rng(seed * 131071 + epoch), the
+    JAX loader's draw (`set_epoch` picks the epoch); otherwise items
+    0..len-1 in order. drop_last: the last batch is dropped when it is
+    short. With num_workers > 0 a pool of that many threads makes the
+    items of enough batches ahead (`prefetch`, and at least two items a
+    worker) while the caller works on the current one; batches come out in
+    order."""
 
-    def __init__(self, dataset, batch_size: int = 1, num_workers: int = 2):
+    def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
+                 drop_last: bool = False, num_workers: int = 2,
+                 seed: int = 0, prefetch: int = 2):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
         self.num_workers = max(0, num_workers)
+        self.seed = seed
+        self.prefetch = prefetch
+        self._epoch = 0
 
     def __len__(self):
-        return -(-len(self.dataset) // self.batch_size)
-
-    def _index_batches(self):
         n = len(self.dataset)
-        return [range(i, min(i + self.batch_size, n))
-                for i in range(0, n, self.batch_size)]
+        if self.drop_last:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
+
+    def set_epoch(self, epoch: int):
+        self._epoch = epoch
+
+    def index_batches(self) -> list:
+        """This epoch's batches of item indices."""
+        n = len(self.dataset)
+        order = np.arange(n)
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed * 131071 + self._epoch)
+            rng.shuffle(order)
+        end = (n // self.batch_size) * self.batch_size if self.drop_last \
+            else n
+        return [order[i:i + self.batch_size]
+                for i in range(0, end, self.batch_size)]
 
     def __iter__(self) -> Iterator[dict]:
-        batches = iter(self._index_batches())
+        batches = iter(self.index_batches())
         if self.num_workers == 0:
             for idxs in batches:
-                yield collate([self.dataset[i] for i in idxs])
+                yield collate([self.dataset[int(i)] for i in idxs])
             return
+        window = max(self.prefetch,
+                     -(-2 * self.num_workers // self.batch_size))
         with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
             pending = deque()
 
             def submit():
                 idxs = next(batches, None)
                 if idxs is not None:
-                    pending.append([ex.submit(self.dataset.__getitem__, i)
-                                    for i in idxs])
-            for _ in range(PREFETCH):
+                    pending.append([ex.submit(self.dataset.__getitem__,
+                                              int(i)) for i in idxs])
+            for _ in range(window):
                 submit()
             try:
                 while pending:

@@ -1,59 +1,63 @@
 """Evaluation harness (counterpart of
-behindthescenes_tpu/evaluation/harness.py:20-97; reference
-utils/base_evaluator.py:15-155): checkpoint loading, the metric loop with
-one generator per item, and periodic logging."""
+behindthescenes_tpu/evaluation/harness.py:19-97; reference
+utils/base_evaluator.py:15-155): checkpoint loading (a committed `.npz`,
+the port's run and step directories, the reference's `.pt` training
+checkpoints), the metric loop with one generator per item, and periodic
+logging."""
 from __future__ import annotations
 
 import logging
 import os
 from typing import Callable
 
-import numpy as np
 import torch
 
+from behindthescenes_tpu_torch.import_torch import load_bts_checkpoint
 from behindthescenes_tpu_torch.models.bts import BTSNet
+from behindthescenes_tpu_torch.training.harness import (CheckpointManager,
+                                                        MeanMetric)
 from behindthescenes_tpu_torch.weights import load_weights
+
+__all__ = ["MeanMetric", "load_eval_variables", "base_evaluation"]
 
 log = logging.getLogger("bts_torch.eval")
 
 
-class MeanMetric:
-    """NaN-skipping running mean (reference utils/metrics.py:11-41)."""
-
-    def __init__(self):
-        self.total = 0.0
-        self.count = 0
-
-    def update(self, value: float):
-        if np.isnan(value):
-            return
-        self.total += float(value)
-        self.count += 1
-
-    def compute(self) -> float:
-        return self.total / self.count if self.count else float("nan")
-
-
 def load_eval_variables(config: dict, net: BTSNet) -> BTSNet:
     """Load the config's `checkpoint` into `net`: a committed `.npz`
-    artifact through the weight bridge; none keeps the random init (with
-    a warning, as the JAX harness evaluates its random init)."""
+    artifact through the weight bridge; a step directory of the port's
+    training harness (`.../checkpoints/<step>`) or a run directory (its
+    latest step in `checkpoints/`); a reference `training*.pt` through
+    `import_torch` (checked against the net's keys and shapes). None
+    keeps the random init (with a warning, as the JAX harness evaluates
+    its random init). An orbax directory of the JAX package raises."""
     path = config.get("checkpoint")
     if not path:
         log.warning("no checkpoint configured — evaluating random init")
         return net
     if os.path.isdir(path):
-        raise NotImplementedError(
-            "orbax run and step directories are not ported: ROADMAP Queue "
-            "A item 5")
+        norm = os.path.normpath(path)
+        base = os.path.basename(norm)
+        if base.isdigit():
+            mgr, step = CheckpointManager(os.path.dirname(norm)), int(base)
+        else:
+            run = os.path.join(norm, "checkpoints")
+            mgr = CheckpointManager(run if os.path.isdir(run) else norm)
+            step = mgr.latest_step()
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint in {mgr.directory}")
+        net.load_state_dict(mgr.load(step)["net"])
+        log.info("restored checkpoint step %s from %s", step, mgr.directory)
+        return net
     if path.endswith(".npz"):
         load_weights(net, path)
         log.info("loaded npz weights from %s", path)
         return net
     if path.endswith(".pt"):
-        raise NotImplementedError(
-            "reference torch checkpoints (.pt, import_torch) are not "
-            "ported: ROADMAP Queue A item 2")
+        load_bts_checkpoint(net, path, config.get("model_conf", {})
+                            .get("encoder", {}))
+        log.info("imported torch checkpoint %s", path)
+        return net
     raise ValueError(f"Unrecognized checkpoint: {path}")
 
 

@@ -1,17 +1,28 @@
-"""Self-supervised training of the synthetic-scene models through the port.
+"""Self-supervised training through the port.
+
+    python -m behindthescenes_tpu_torch.train -cn NAME [key=value ...] \
+        [--f32] [--device cpu]
+
+runs the training task of configs/NAME.yaml (`model: bts` through
+`training/tasks.bts_training`, `model: bts_overfit` through
+`bts_overfit_training`) with the run harness, as the repository's
+train.py runs the JAX package's: checkpoints, validation, the best
+checkpoints and auto-resume under `output_path` (checkpoints/<step>/,
+best/<step>/, best/best_value.json).
 
     python -m behindthescenes_tpu_torch.train --steps N [-cn NAME] \
         [key=value ...] [--f32] [--weights npz] [--out dir] [--device cpu]
 
-NAME is a training config of configs/ (default exp_synthetic_flagship:
-ResNet-50, 192x640, batch 4, 2048 rays x 64 samples; exp_synthetic:
-ResNet-18, 48x64, batch 2, 256 rays x 24 samples), read with its
-`defaults` and the overrides by the port's config loader. Trains from
---weights or from the port's initialiser, in bf16 compute unless --f32,
-prints one JSON line of loss terms per step, and writes the parameters
-and BatchNorm statistics as a Flax-keyed f32 `.npz` (DIR/params.npz) that
-the JAX package's `utils/io.load_params_npz` reads. Runs on the card
-unless --device says otherwise.
+is the short drive: N steps from --weights or from the port's
+initialiser on the config's training batches in the loader's order
+(default NAME exp_synthetic_flagship: ResNet-50, 192x640, batch 4, 2048
+rays x 64 samples; exp_synthetic: ResNet-18, 48x64, batch 2, 256 rays x 24
+samples), one JSON line of loss terms per step, and the parameters and
+BatchNorm statistics as a Flax-keyed f32 `.npz` (DIR/params.npz) that the
+JAX package's `utils/io.load_params_npz` reads.
+
+Both compute in bf16 unless --f32, and run on the card unless --device
+says otherwise.
 """
 from __future__ import annotations
 
@@ -20,12 +31,12 @@ import json
 import os
 import time
 
-import numpy as np
 
 from behindthescenes_tpu_torch.config import (find_config, load_config,
                                               parse_cli_overrides)
 from behindthescenes_tpu_torch.datasets.factory import make_datasets
-from behindthescenes_tpu_torch.datasets.synthetic import collate
+from behindthescenes_tpu_torch.datasets.loader import DataLoader
+from behindthescenes_tpu_torch.training import tasks
 from behindthescenes_tpu_torch.training.trainer import BTSTrainer
 from behindthescenes_tpu_torch.weights import save_params_npz
 
@@ -39,22 +50,41 @@ def config(name: str = "exp_synthetic_flagship", f32: bool = False,
     return conf
 
 
-def batches(conf: dict, rng: np.random.Generator):
-    """Shuffled training batches of `batch_size` items, epoch after epoch
-    (the JAX loader's drop_last order is not reproduced)."""
+def batches(conf: dict):
+    """The training batches of the run harness, epoch after epoch: the
+    loader shuffled by the config's seed (the JAX loader's order), the
+    last partial batch dropped."""
     train_ds, _ = make_datasets(conf["data"])
-    bs = conf["batch_size"]
+    loader = DataLoader(train_ds, batch_size=conf["batch_size"],
+                        shuffle=True, drop_last=True,
+                        num_workers=conf.get("num_workers", 2),
+                        seed=conf.get("seed", 0))
+    epoch = 0
     while True:
-        order = rng.permutation(len(train_ds))
-        for lo in range(0, len(order) - bs + 1, bs):
-            yield collate([train_ds[int(i)] for i in order[lo:lo + bs]])
+        loader.set_epoch(epoch)
+        yield from loader
+        epoch += 1
+
+
+def run_task(conf: dict, device=None):
+    """The config's training task (`model`) through the run harness.
+    Returns the trainer."""
+    model = conf.get("model", "bts")
+    if model == "bts":
+        return tasks.bts_training(conf, device=device)
+    if model == "bts_overfit":
+        return tasks.bts_overfit_training(conf, device=device)
+    raise ValueError(f"Unknown model/task: {model}")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--steps", type=int, required=True)
-    ap.add_argument("-cn", "--config", default="exp_synthetic_flagship",
-                    help="a training config of configs/")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="the short drive of N steps (default: the config's "
+                         "training run through the harness)")
+    ap.add_argument("-cn", "--config", default=None,
+                    help="a training config of configs/ (the short drive's "
+                         "default: exp_synthetic_flagship)")
     ap.add_argument("overrides", nargs="*", help="key=value overrides")
     ap.add_argument("--f32", action="store_true",
                     help="f32 compute (default: bf16, as the JAX trainer)")
@@ -66,10 +96,19 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_intermixed_args(argv)
-    conf = config(args.config, args.f32, args.overrides)
+    if args.steps is None:
+        if args.config is None:
+            ap.error("-cn NAME is required for a training run")
+        conf = load_config(find_config(args.config),
+                           parse_cli_overrides(args.overrides))
+        if args.f32:
+            conf["bf16"] = False
+        return run_task(conf, device=args.device)
+    conf = config(args.config or "exp_synthetic_flagship", args.f32,
+                  args.overrides)
     trainer = BTSTrainer(conf, device=args.device)
     trainer.init_state(args.weights)
-    data = batches(conf, np.random.default_rng(conf["seed"]))
+    data = batches(conf)
     losses = []
     for step in range(args.steps):
         t0 = time.perf_counter()

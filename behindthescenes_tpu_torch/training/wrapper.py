@@ -60,9 +60,6 @@ class BTSWrapper:
         if config.get("use_automasking", False):
             raise NotImplementedError(
                 "automasking is not ported: ROADMAP Queue A item 5")
-        if config.get("alternating_ratio", None) is not None:
-            raise NotImplementedError(
-                "alternating_ratio is not ported: ROADMAP Queue A item 5")
         self.remat_render = config.get("remat_render", False)
         self.train_ray_chunk = config.get("train_ray_chunk", 512)
         self.eval_ray_chunk = config.get("eval_ray_chunk", 16384)

@@ -173,7 +173,9 @@ def flat_from_state_dict(sd: dict, dispconv_scales=(0, 1, 2, 3)) -> dict:
     """The port's state_dict (or a dict of per-parameter gradients under
     the same names) -> flat {Flax key: float32 numpy array} in Flax's
     layout; `num_batches_tracked` has no Flax counterpart and is dropped.
-    dispconv_scales: the decoder's scales (its 10th, 11th... entries)."""
+    dispconv_scales: the decoder's scales (its 10th, 11th... entries).
+    The arrays are copies: they do not follow the tensors' later
+    changes."""
     flat = {}
     for name, t in sd.items():
         if name.endswith("num_batches_tracked"):
@@ -184,7 +186,7 @@ def flat_from_state_dict(sd: dict, dispconv_scales=(0, 1, 2, 3)) -> dict:
             arr = np.transpose(arr, (2, 3, 1, 0))
         elif kind == "dense":
             arr = np.transpose(arr, (1, 0))
-        flat[key] = np.ascontiguousarray(arr)
+        flat[key] = np.array(arr, order="C", copy=True)
     return flat
 
 

@@ -55,6 +55,19 @@ the means to the JAX gate's bounds and to the JAX package's CPU means for
 the same command, and each frame's time is split into encode, pseudo-depth
 render, density query and host ground truth.
 
+Then, on the same drive, phase 16 runs the paper's KITTI-360 training
+(configs/exp_kitti_360.yaml at full width: ResNet-50, 192x640, batch 4 x
+accumulate_steps 4, 8 views an item, 4096 rays x 64 samples, bf16, colour
+jitter) through `python -m behindthescenes_tpu_torch.train -cn
+exp_kitti_360`'s task: its fisheye frames preprocessed, the encoder from a
+torchvision-keyed ResNet-50 `.pth` written from k360_synth_conv.npz, 30
+micro-steps in this process and 10 more in a second one that auto-resumes.
+It holds the checkpoints, best steps, the bit-equal restore and the
+resumed micro-step to the JAX harness's rules, checks that no decode
+kernel ran, holds run_validation of the checkpoint to the JAX package's
+CPU means, and splits a micro-step at the trainer's mark points, beside
+the loader's wait, the update, checkpoint and validation times.
+
 Prints one progress line per phase (flushed, with the phase's seconds),
 then a JSON line of frame times, metrics and training times, one JSON line
 with a record per kernel, the card's name and power limit, and as the
@@ -239,6 +252,28 @@ OCC_FLOORS = {"jitter_density_lidar": {"o_acc": 0.85, "ie_prec": 0.55,
               "jitter_density_bbox": {"o_acc": 0.82, "ie_rec": 0.25}}
 OCC_METRICS = ("o_acc", "o_prec", "o_rec", "ie_acc", "ie_prec", "ie_rec")
 OCC_STAGES = ("encode", "render", "query", "ground_truth")
+
+# Phase 16: the paper's KITTI-360 training run (configs/exp_kitti_360.yaml:
+# ResNet-50, 192x640, batch 4 x accumulate_steps 4, 8 views an item, 4096
+# patch rays x 64 samples, bf16) on the gate drive, its fisheye frames
+# preprocessed at the config's rotation, the encoder initialised from a
+# torchvision-keyed ResNet-50 `.pth` written from K360_WEIGHTS. A first
+# run in this process to `stops[0]` micro-steps, then a second process
+# on the same output_path to `stops[1]`, which auto-resumes.
+K360_TRAIN_CONFIG = "exp_kitti_360"
+K360_RUN = {"stops": (30, 40), "checkpoint_every": 10, "validate_every": 16,
+            "timed_from": 5}
+# The JAX package's run_validation means of K360_WEIGHTS on the drive's
+# test split for the same command, on this sandbox's CPU
+# (`JAX_PLATFORMS=cpu python3 tools/k360_val_reference.py`: the same
+# files, bf16, 4 items of 8 views); the two sides draw different jitter.
+K360_VAL_JAX = {"abs_rel": 0.12195942178368568, "a1": 0.9036229252815247}
+K360_VAL_GAP = {"abs_rel": 0.005, "a1": 0.01}
+# Micro-steps on one cached batch after the runs (the first 2 not timed).
+K360_CACHED_STEPS = 8
+# The micro-step's points: the harness's "wait" (the next batch asked for)
+# and "data" (on the card), then the train step's STAGES.
+RUN_POINTS = ("wait", "data") + STAGES
 
 _T0 = time.perf_counter()
 
@@ -969,6 +1004,441 @@ def occupancy_phases(tree: str, dev, card: str, clock_fn, extra=()):
     return out
 
 
+def torchvision_resnet_state_dict(npz: str, layers: int = 50) -> dict:
+    """A torchvision-keyed ResNet state dict (conv1.weight, bn1.*,
+    layerN.M.*, downsample.*, fc.*) of the encoder in a Flax-keyed `.npz`,
+    as torchvision's `resnet{layers}-*.pth` files hold it; fc is zero."""
+    import torch
+    from behindthescenes_tpu_torch.weights import (load_params_npz,
+                                                   state_dict_from_flat)
+    prefix = "encoder.encoder.encoder."
+    sd = {k[len(prefix):]: v for k, v in
+          state_dict_from_flat(load_params_npz(npz)).items()
+          if k.startswith(prefix)}
+    width = 2048 if layers >= 50 else 512
+    sd["fc.weight"] = torch.zeros(1000, width)
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def k360_run_overrides(tree: str, pth: str, out: str, stop: int,
+                       extra=()) -> list:
+    """The command line's overrides of phase 16's runs."""
+    return [f"data.data_path={tree}",
+            f"data.pose_path={os.path.join(tree, 'data_poses')}",
+            f"data.split_path={os.path.join(tree, 'splits')}",
+            f"model_conf.encoder.cp_location={pth}",
+            "model_conf.encoder.pretrained_strict=true",
+            f"stop_iteration={stop}",
+            f"checkpoint_every={K360_RUN['checkpoint_every']}",
+            f"validate_every={K360_RUN['validate_every']}",
+            f"output_path={out}", *extra]
+
+
+def expected_run_steps(stops, every: int, keep: int = 3) -> tuple:
+    """The step directories the JAX harness's rules leave in checkpoints/
+    after each run: a save every `every` micro-steps and at each stop
+    (not twice), the newest `keep` kept."""
+    saved, out = [], []
+    for stop in stops:
+        start = saved[-1] if saved else 0
+        saved += [s for s in range(start + 1, stop + 1) if s % every == 0]
+        if saved[-1] != stop:
+            saved.append(stop)
+        out.append(sorted(saved)[-keep:])
+    return tuple(out)
+
+
+def _flat_state(state, prefix=""):
+    """A trainer state dict flattened to {path: tensor or number}."""
+    out = {}
+    if isinstance(state, dict):
+        for k, v in state.items():
+            out.update(_flat_state(v, f"{prefix}{k}/"))
+    elif isinstance(state, (list, tuple)):
+        for i, v in enumerate(state):
+            out.update(_flat_state(v, f"{prefix}{i}/"))
+    else:
+        out[prefix[:-1]] = state.detach().cpu().clone() \
+            if hasattr(state, "detach") else state
+    return out
+
+
+def _states_equal(a: dict, b: dict) -> list:
+    """The paths where two flattened states differ, bit for bit."""
+    import torch
+    bad = sorted(set(a) ^ set(b))
+    for k in set(a) & set(b):
+        x, y = a[k], b[k]
+        if isinstance(x, torch.Tensor) != isinstance(y, torch.Tensor):
+            bad.append(k)
+        elif isinstance(x, torch.Tensor):
+            if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                    x.reshape(-1).view(torch.uint8),
+                    y.reshape(-1).view(torch.uint8)):
+                bad.append(k)
+        elif x != y:
+            bad.append(k)
+    return bad
+
+
+def k360_training_phase(tree: str, dev, card: str, clock_fn,
+                        extra=()) -> dict:
+    """Phase 16 on `tree` (a make_gate_tree drive), with the `extra`
+    overrides. Raises unless the encoder loaded from the `.pth` equals
+    K360_WEIGHTS' bit for bit; parameters stay put on the micro-steps that
+    emit no update and move on those that do; every loss is finite; the
+    first run leaves the checkpoint and best directories of the JAX
+    harness's rules; the state restored from its last checkpoint equals
+    the state it saved there bit for bit (the half-filled accumulator and
+    its counter included); the second run resumes at the next micro-step,
+    leaves the newest checkpoints and carries the best value over; no
+    decode kernel was launched; and run_validation of K360_WEIGHTS lies
+    within K360_VAL_GAP of K360_VAL_JAX. Returns the phase's record."""
+    import copy
+    import math
+    import re
+    import statistics
+    import numpy as np
+    import torch
+    from behindthescenes_tpu_torch.config import (find_config, load_config,
+                                                  parse_cli_overrides)
+    from behindthescenes_tpu_torch.datasets.preprocess_kitti_360 import \
+        preprocess
+    from behindthescenes_tpu_torch.ops import kernels
+    from behindthescenes_tpu_torch.training import harness, tasks
+    from behindthescenes_tpu_torch.training.trainer import BTSTrainer
+    from behindthescenes_tpu_torch.weights import (flat_from_state_dict,
+                                                   load_params_npz)
+    cuda = torch.device(dev).type == "cuda"
+    stops = K360_RUN["stops"]
+    res = {"config": K360_TRAIN_CONFIG, "overrides": list(extra),
+           "stops": list(stops)}
+
+    def conf_for(stop, pth, out):
+        return load_config(find_config(K360_TRAIN_CONFIG),
+                           parse_cli_overrides(k360_run_overrides(
+                               tree, pth, out, stop, extra)))
+
+    with tempfile.TemporaryDirectory(prefix="k360_run_") as tmp:
+        t = time.perf_counter()
+        conf = conf_for(stops[0], os.path.join(tmp, "resnet50.pth"),
+                        os.path.join(tmp, "run"))
+        data = conf["data"]
+        preprocess(tree, data["image_size"],
+                   fisheye_rotation=data["fisheye_rotation"],
+                   only_fisheye=True)
+        res["fisheye_preprocess_s"] = time.perf_counter() - t
+        pth = conf["model_conf"]["encoder"]["cp_location"]
+        out = conf["output_path"]
+        torch.save(torchvision_resnet_state_dict(
+            K360_WEIGHTS, conf["model_conf"]["encoder"]["resnet_layers"]),
+            pth)
+
+        # The encoder the run starts from, against the npz's.
+        probe = BTSTrainer(conf, device=dev)
+        probe.init_state()
+        got = flat_from_state_dict(probe.net.state_dict(),
+                                   probe.net.encoder.scales)
+        want = {k: v for k, v in load_params_npz(K360_WEIGHTS).items()
+                if k.split("/", 1)[1].startswith("encoder/encoder/")}
+        differ = [k for k in want if not np.array_equal(got[k], want[k])]
+        if len(want) < 100 or differ:
+            raise AssertionError(f"pretrained encoder: {len(differ)} of "
+                                 f"{len(want)} tensors differ from "
+                                 f"{K360_WEIGHTS}: {differ[:3]}")
+        res["encoder_tensors_equal"] = len(want)
+        del probe
+
+        # The first run, in this process.
+        kernels.reset_launch_counts()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        clock = clock_fn()
+        points = []
+
+        def mark(name):
+            points.append((name, time.perf_counter(), clock()))
+        steps, losses, iteration_ends = [], [], []
+        prev = {}
+
+        def on_iteration(it, trainer, loss_dict):
+            params = torch.cat([p.detach().reshape(-1)
+                                for p in trainer.net.parameters()])
+            if "params" in prev:
+                steps.append((it, torch.equal(params, prev["params"])))
+            prev["params"] = params
+            losses.append(float(loss_dict["loss"]))
+            iteration_ends.append((time.perf_counter(), clock()))
+
+        t = time.perf_counter()
+        trainer = tasks.bts_training(conf, device=dev, mark=mark,
+                                     on_iteration=on_iteration)
+        if cuda:
+            torch.cuda.synchronize()
+        res["first_run_s"] = time.perf_counter() - t
+        res["launches"] = kernels.launch_counts()
+        res["peak_memory"] = torch.cuda.max_memory_allocated() if cuda \
+            else None
+        if any(res["launches"].values()):
+            raise AssertionError(f"training launched decode kernels: "
+                                 f"{res['launches']}")
+        if len(losses) != stops[0] or trainer.step != stops[0] or \
+                not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"first run: {trainer.step} micro-steps, "
+                                 f"losses {losses}")
+        k = conf["accumulate_steps"]
+        moved = {it: not same for it, same in steps}
+        want_moved = {it: it % k == 0 for it in moved}
+        if moved != want_moved:
+            raise AssertionError(f"parameters moved at {moved}, want "
+                                 f"{want_moved}")
+        res["losses"] = losses
+
+        ckpt_dir = os.path.join(out, "checkpoints")
+        best_dir = os.path.join(out, "best")
+        want_steps = expected_run_steps(stops, K360_RUN["checkpoint_every"])
+
+        def listing(d):
+            return sorted(int(x) for x in os.listdir(d) if x.isdigit())
+        best_first = [s for s in range(1, stops[0] + 1)
+                      if s % K360_RUN["validate_every"] == 0]
+        with open(os.path.join(best_dir, "best_value.json")) as f:
+            best_value = json.load(f)
+        res["best_value_first"] = best_value
+        best_saved = listing(best_dir)
+        if listing(ckpt_dir) != want_steps[0] or \
+                best_value["metric"] != "abs_rel" or \
+                not best_saved or best_saved[-1] != best_value["step"] or \
+                not set(best_saved) <= set(best_first) or \
+                len(best_saved) > 2:
+            raise AssertionError(f"first run: checkpoints "
+                                 f"{listing(ckpt_dir)} (want "
+                                 f"{want_steps[0]}), best "
+                                 f"{listing(best_dir)}, {best_value}")
+
+        # The saved state at the stop against the state in memory.
+        live = _flat_state(trainer.state_dict())
+        del trainer
+        if cuda:
+            torch.cuda.empty_cache()
+        fresh = BTSTrainer(conf, device=dev)
+        fresh.init_state()
+        t0, c0 = time.perf_counter(), clock()
+        step, _ = harness.CheckpointManager(ckpt_dir).restore(fresh)
+        c1 = clock()
+        clock.sync()
+        res["restore_ms"] = clock.ms(c0, c1)
+        res["restore_host_ms"] = (time.perf_counter() - t0) * 1e3
+        bad = _states_equal(live, _flat_state(fresh.state_dict()))
+        if step != stops[0] or bad or fresh.mini_step != stops[0] % k or \
+                not any(bool(a.abs().max() > 0)
+                        for a in fresh.acc_grads.values()):
+            raise AssertionError(f"restored step {step}, mini_step "
+                                 f"{fresh.mini_step}; differs at {bad[:5]}")
+        res["restored_mini_step"] = fresh.mini_step
+        del fresh
+
+        # The second run: a new process on the same output_path.
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "behindthescenes_tpu_torch.train", "-cn",
+             K360_TRAIN_CONFIG, *k360_run_overrides(
+                 tree, pth, out, stops[1], (*extra, "log_every_iters=1")),
+             *(["--device", str(dev)] if not cuda else [])],
+            capture_output=True, text=True, timeout=900)
+        res["second_run_s"] = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"second run exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        its = [int(m.group(1)) for m in
+               re.finditer(r" it (\d+) loss (\S+)", proc.stderr)]
+        second_losses = [float(m.group(2)) for m in
+                         re.finditer(r" it (\d+) loss (\S+)", proc.stderr)]
+        with open(os.path.join(best_dir, "best_value.json")) as f:
+            best_second = json.load(f)
+        # A new best of the second run joins the first run's; two kept.
+        want_best = sorted(set(best_saved) | {best_second["step"]})[-2:]
+        carried = f"resuming best abs_rel tracker at signed value " \
+            f"{best_value['signed_value']:.5f}" in proc.stderr
+        if its != list(range(stops[0] + 1, stops[1] + 1)) or \
+                not all(math.isfinite(x) for x in second_losses) or \
+                listing(ckpt_dir) != want_steps[1] or not carried or \
+                listing(best_dir) != want_best:
+            raise AssertionError(f"second run: micro-steps {its}, losses "
+                                 f"{second_losses}, checkpoints "
+                                 f"{listing(ckpt_dir)} (want "
+                                 f"{want_steps[1]}), best "
+                                 f"{listing(best_dir)} (want {want_best}),"
+                                 f" best value carried {carried}")
+        res.update(second_losses=second_losses, best_value=best_second,
+                   checkpoints=listing(ckpt_dir), best=listing(best_dir))
+
+    # Validation of the committed checkpoint against JAX's means.
+    val_trainer = BTSTrainer(conf, device=dev)
+    val_trainer.init_state(K360_WEIGHTS)
+    _, val_loader, _ = tasks.bts_get_dataflow(conf)
+    t0, c0 = time.perf_counter(), clock()
+    means = harness.run_validation(val_trainer, val_loader)
+    c1 = clock()
+    clock.sync()
+    n_items = len(val_loader)
+    res["validation_ms_per_item"] = clock.ms(c0, c1) / n_items
+    res["validation_host_ms_per_item"] = \
+        (time.perf_counter() - t0) * 1e3 / n_items
+    res["validation"] = means
+    for key, bound in K360_VAL_GAP.items():
+        res[f"gap_{key}"] = means[key] - K360_VAL_JAX[key]
+        if not abs(res[f"gap_{key}"]) <= bound:
+            raise AssertionError(f"run_validation {key} {means[key]:.6f} vs "
+                                 f"JAX {K360_VAL_JAX[key]:.6f} (bound "
+                                 f"{bound})")
+
+    # The loader's work alone: items made one after another on this
+    # thread; then micro-steps on one of its batches, cached on the card,
+    # with no loader thread running beside them.
+    from behindthescenes_tpu_torch.datasets.synthetic import collate
+    train_ds = tasks.bts_get_dataflow(conf)[0].dataset
+    n = conf["batch_size"]
+    t0 = time.perf_counter()
+    items = [train_ds[i] for i in range(2 * n)]
+    res["loader_item_host_ms"] = (time.perf_counter() - t0) * 1e3 / (2 * n)
+    plain_ds = copy.copy(train_ds)
+    plain_ds.color_aug = False
+    t0 = time.perf_counter()
+    for i in range(2 * n):
+        plain_ds[i]
+    res["loader_item_no_jitter_host_ms"] = \
+        (time.perf_counter() - t0) * 1e3 / (2 * n)
+    batch = {key: torch.as_tensor(v).to(dev)
+             for key, v in collate(items[:n]).items()}
+    cached = []
+    for _ in range(K360_CACHED_STEPS):
+        events = [("data", time.perf_counter(), clock())]
+        val_trainer.train_step(batch, mark=lambda name: events.append(
+            (name, time.perf_counter(), clock())))
+        cached.append(events)
+    clock.sync()
+    split = {}
+    for events in cached[2:]:
+        for (_, _, a), (name, _, b) in zip(events, events[1:]):
+            split.setdefault(name, []).append(clock.ms(a, b))
+        split.setdefault("micro_step", []).append(
+            clock.ms(events[0][2], events[-1][2]))
+    res["cached_median_ms"] = {key: statistics.median(v)
+                               for key, v in split.items()}
+
+    # Where a micro-step's time goes.
+    res.update(run_split(points, iteration_ends, clock, k,
+                         K360_RUN["timed_from"]))
+    return res
+
+
+def run_split(points, iteration_ends, clock, accumulate: int,
+              timed_from: int) -> dict:
+    """The first run's marks in order (name, host time, clock event): per
+    micro-step after `timed_from`, the card's ms of each train-step stage
+    (between consecutive points), the host's wait for the loader, and the
+    whole micro-step on the host's clock; the optimizer stage apart on
+    the micro-steps that apply an update; each checkpoint save's ms, from
+    the end of its micro-step's on_iteration (`iteration_ends`)."""
+    import statistics
+    steps, cur, saves = [], None, []
+    for name, host, ev in points:
+        if name == "wait" and cur is not None and len(cur["events"]) == 1:
+            continue  # an epoch ended: the wait goes on in the next one
+        if name == "wait":
+            if cur is not None:
+                cur["host_ms"] = (host - cur["t0"]) * 1e3
+                steps.append(cur)
+            cur = {"t0": host, "events": [(name, host, ev)]}
+        elif cur is not None:
+            cur["events"].append((name, host, ev))
+        if name == "checkpoint":
+            h0, e0 = [e for e in iteration_ends if e[0] <= host][-1]
+            saves.append((h0, host, e0, ev))
+    out = {"stage_ms": {}, "update_ms": [], "no_update_ms": [],
+           "loader_wait_ms": [], "micro_step_host_ms": [],
+           "micro_step_ms": []}
+    for n, st in enumerate(steps, start=1):
+        names = [e[0] for e in st["events"]]
+        if names[:len(RUN_POINTS)] != list(RUN_POINTS):
+            raise AssertionError(f"micro-step {n}: points {names}")
+        ev = {e[0]: e for e in st["events"]}
+        out["loader_wait_ms"].append((ev["data"][1] - ev["wait"][1]) * 1e3)
+        if n <= timed_from:
+            continue
+        for a, b in zip(RUN_POINTS[1:], RUN_POINTS[2:]):
+            out["stage_ms"].setdefault(b, []).append(
+                clock.ms(ev[a][2], ev[b][2]))
+        out["micro_step_ms"].append(clock.ms(ev["data"][2],
+                                             ev["optimizer"][2]))
+        out["micro_step_host_ms"].append(st["host_ms"])
+        opt = clock.ms(ev["backward"][2], ev["optimizer"][2])
+        (out["update_ms"] if n % accumulate == 0
+         else out["no_update_ms"]).append(opt)
+    out["median_stage_ms"] = {k: statistics.median(v)
+                              for k, v in out.pop("stage_ms").items()}
+    out["checkpoint_save_ms"] = [clock.ms(a, b) for _, _, a, b in saves]
+    out["checkpoint_save_host_ms"] = [(h1 - h0) * 1e3
+                                      for h0, h1, _, _ in saves]
+    return out
+
+
+def print_k360_run(res: dict, card: str) -> None:
+    """Phase 16's lines: the micro-step split, loader wait, update,
+    checkpoint and validation times, peak memory, and the checks."""
+    import statistics
+
+    def med(xs):
+        return statistics.median(xs) if xs else float("nan")
+    peak = res["peak_memory"]
+    stages = res["median_stage_ms"]
+    print(f"[chip_smoke] exp_kitti_360 micro-step ({card}), median over "
+          f"micro-steps {K360_RUN['timed_from'] + 1}-{res['stops'][0] - 1}:"
+          f" card {med(res['micro_step_ms']):.2f} ms ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+          + f" ms), host {med(res['micro_step_host_ms']):.2f} ms, of which "
+          f"loader wait {med(res['loader_wait_ms'][K360_RUN['timed_from']:]):.2f}"
+          f" ms (first micro-step {res['loader_wait_ms'][0]:.2f}); optimizer"
+          f" stage {med(res['update_ms']):.2f} ms with the update, "
+          f"{med(res['no_update_ms']):.2f} ms without; peak memory "
+          + ("not measured" if peak is None else f"{peak / 2**30:.2f} GiB"),
+          flush=True)
+    cached = res["cached_median_ms"]
+    print(f"[chip_smoke] exp_kitti_360 micro-step on one cached batch, no "
+          f"loader thread ({card}), median of {K360_CACHED_STEPS - 2}: "
+          f"{cached['micro_step']:.2f} ms ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in cached.items()
+                      if k != "micro_step")
+          + f" ms); the loader's item alone {res['loader_item_host_ms']:.1f}"
+          f" ms on one host thread (8 PNG reads and 8 colour jitters), "
+          f"{res['loader_item_no_jitter_host_ms']:.1f} ms without the "
+          f"jitter", flush=True)
+    print(f"[chip_smoke] exp_kitti_360 run ({card}): checkpoint save "
+          + ", ".join(f"{x:.1f}" for x in res["checkpoint_save_host_ms"])
+          + f" ms (host), restore {res['restore_host_ms']:.1f} ms (host), "
+          f"validation {res['validation_ms_per_item']:.1f} ms per item "
+          f"(card), {res['validation_host_ms_per_item']:.1f} (host); "
+          f"fisheye frames preprocessed in {res['fisheye_preprocess_s']:.1f}"
+          f" s; first run {res['first_run_s']:.1f} s, second (a new "
+          f"process) {res['second_run_s']:.1f} s", flush=True)
+    print(f"[chip_smoke] exp_kitti_360 run: encoder from the .pth equal to "
+          f"{K360_WEIGHTS} in {res['encoder_tensors_equal']} tensors; "
+          f"losses {res['losses'][0]:.5f} ... {res['losses'][-1]:.5f}, then "
+          f"{res['second_losses'][0]:.5f} ... {res['second_losses'][-1]:.5f}"
+          f"; restored mini_step {res['restored_mini_step']}, state "
+          f"bit-equal; checkpoints {res['checkpoints']}, best {res['best']}"
+          f" ({json.dumps(res['best_value'])}); decode kernel launches "
+          f"{json.dumps(res['launches'])}; run_validation of {K360_WEIGHTS}"
+          f" abs_rel {res['validation']['abs_rel']:.6f} (JAX on the CPU "
+          f"{K360_VAL_JAX['abs_rel']:.6f}, gap {res['gap_abs_rel']:+.6f}, "
+          f"bound {K360_VAL_GAP['abs_rel']}), a1 "
+          f"{res['validation']['a1']:.6f} (JAX {K360_VAL_JAX['a1']:.6f}, "
+          f"gap {res['gap_a1']:+.6f}, bound {K360_VAL_GAP['a1']})",
+          flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1182,6 +1652,13 @@ def main() -> None:
         log("phase 14 tree", "the occupancy gate's drive generated and "
             "preprocessed on the host", t)
         occupancy = occupancy_phases(tree, dev, card, cuda_clock)
+
+        # -- 16: the exp_kitti_360 training run on the same drive ----------
+        t = time.perf_counter()
+        k360_run = k360_training_phase(tree, dev, card, cuda_clock)
+        print_k360_run(k360_run, card)
+        log("phase 16 exp_kitti_360 run", "checkpoints, best, resume and "
+            "validation as the JAX harness's; no decode kernel", t)
     t = time.perf_counter()
     for res, (kernel, args, kwargs) in occupancy:
         records.append(kernel_record(
@@ -1195,7 +1672,8 @@ def main() -> None:
                       "serving": serving, "general_path": general["means"],
                       "train_parity": parity, "training": training,
                       "configs": configs, "fine_pass": fine,
-                      "occupancy": [res for res, _ in occupancy]}),
+                      "occupancy": [res for res, _ in occupancy],
+                      "k360_training": k360_run}),
           flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)

@@ -265,19 +265,38 @@ def test_tasks_compute_in_bf16_by_default():
 
 
 def test_unported_tasks_and_checkpoints_are_refused(tmp_path):
-    # The occupancy tasks are ported; the KITTI-360 loader's colour
-    # augmentation is not, and refuses before it reads the tree.
-    for name, task in (("eval_lidar_occ", ttasks.evaluate_lidar_occ),
-                       ("eval_3dbb", ttasks.evaluate_3dbb)):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            task(load_config(find_config(name), {"data": {
-                "color_aug": True}}), device="cpu")
+    """What is still refused names itself: an orbax step directory of the
+    JAX package, sweep-mode NVS serving (ROADMAP item 10) and training
+    with the fine pass (n_fine > 0). Run and step directories of the
+    port's harness and reference `.pt` checkpoints load now (a step
+    directory here; tests/test_torch_run_harness.py and
+    tests/test_torch_import.py hold them to the JAX package); an unknown
+    file still raises, and no checkpoint keeps the net as it is."""
+    from behindthescenes_tpu_torch.training.harness import CheckpointManager
+    from behindthescenes_tpu_torch.training.trainer import BTSTrainer
     conf = _conf("eval_synthetic")
     net = BTSNet.from_conf(conf["model_conf"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        harness.load_eval_variables({"checkpoint": str(tmp_path)}, net)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        harness.load_eval_variables({"checkpoint": "training.pt"}, net)
+    (tmp_path / "orbax" / "15" / "default").mkdir(parents=True)
+    with pytest.raises(NotImplementedError, match="orbax"):
+        harness.load_eval_variables(
+            {"checkpoint": str(tmp_path / "orbax")}, net)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        NVSEvaluator(net, tr.RendererConfig.from_conf(conf["renderer"]),
+                     dict(conf["model_conf"], nvs_sweep=True))
+    trainer = BTSTrainer(dict(conf, renderer=dict(conf["renderer"],
+                                                  n_fine=4)), device="cpu")
+    trainer.init_state()
+    ds = SyntheticBoxDataset(length=1, frame_count=4, height=48, width=64)
+    with pytest.raises(NotImplementedError, match="n_fine > 0"):
+        trainer.train_step(collate([ds[0]]))
+    CheckpointManager(str(tmp_path / "run" / "checkpoints")).save(
+        2, trainer)
+    loaded = BTSNet.from_conf(conf["model_conf"])
+    harness.load_eval_variables(
+        {"checkpoint": str(tmp_path / "run" / "checkpoints" / "2")}, loaded)
+    for a, b in zip(loaded.state_dict().values(),
+                    trainer.net.state_dict().values()):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError):
         harness.load_eval_variables({"checkpoint": "weights.bin"}, net)
     assert harness.load_eval_variables({"checkpoint": None}, net) is net
