@@ -1,7 +1,7 @@
 """Dataset factory (counterpart of behindthescenes_tpu/datasets/factory.py:
 12-60): the Synthetic type, over the port's copy of the synthetic scenes,
 and KITTI_360 (`datasets/kitti_360.py`). The other disk datasets wait for
-ROADMAP Queue A item 7."""
+ROADMAP Queue A item 3 (KITTI raw, RealEstate10K) and item 7 (the rest)."""
 from __future__ import annotations
 
 from behindthescenes_tpu_torch.datasets import synthetic
@@ -18,8 +18,10 @@ def make_datasets(data_conf: dict):
             Kitti360Dataset)
         return Kitti360Dataset.make_train_test(data_conf)
     if dtype != "Synthetic":
+        item = 3 if dtype in ("KITTI_Raw", "RealEstate10k") else 7
         raise NotImplementedError(
-            f"dataset type {dtype!r} is not ported: ROADMAP Queue A item 7")
+            f"dataset type {dtype!r} is not ported: ROADMAP Queue A item "
+            f"{item}")
     h, w = data_conf.get("image_size", (48, 64))
     fc = data_conf.get("data_fc", 2)
     length = data_conf.get("length", 64)

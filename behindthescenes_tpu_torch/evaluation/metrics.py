@@ -81,8 +81,10 @@ class LPIPSVGG:
     and `scale`. `maybe_create` returns None when no weights are given,
     so evaluators skip the metric."""
 
-    # Per-stage convolution counts (VGG16 relu1_2 .. relu5_3).
+    # Per-stage convolution counts and channels (VGG16 relu1_2 ..
+    # relu5_3).
     _STAGES = (2, 2, 3, 3, 3)
+    CHANNELS = (64, 128, 256, 512, 512)
 
     def __init__(self, weights_npz: str, device=None):
         dev = torch.device(device or "cpu")
@@ -109,13 +111,14 @@ class LPIPSVGG:
             path or "no path given")
         return None
 
-    def features(self, x):
+    def features(self, x, num_stages: int = 5):
         """VGG16 stage activations (relu1_2 .. relu5_3) of x (n, 3, h, w)
-        in [-1, 1]: 3x3 convolutions with SAME padding, 2x2 VALID max
-        pools between stages. Returns a list of NCHW tensors."""
+        in [-1, 1], of the first `num_stages` stages: 3x3 convolutions
+        with SAME padding, 2x2 VALID max pools between stages. Returns a
+        list of NCHW tensors."""
         h = (x - self.shift) / self.scale
         feats, ci = [], 0
-        for stage, n_convs in enumerate(self._STAGES):
+        for stage, n_convs in enumerate(self._STAGES[:num_stages]):
             for _ in range(n_convs):
                 h = torch.relu(F.conv2d(h, self.conv_w[ci], self.conv_b[ci],
                                         padding=1))

@@ -75,7 +75,7 @@ class NVSEvaluator:
         if config.get("nvs_sweep"):
             raise NotImplementedError(
                 "model_conf.nvs_sweep (sweep-mode serving, models/sweep.py) "
-                "is not ported: ROADMAP Queue A item 10")
+                "is not ported: ROADMAP Queue A item 4")
         exact_f32()
         self.net = net
         self.cfg = renderer_cfg

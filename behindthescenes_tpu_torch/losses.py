@@ -64,8 +64,9 @@ def _masked_mean(x, keep_mask):
 @dataclasses.dataclass(frozen=True)
 class ReconstructionLoss:
     """Mirrors the reference ReconstructionLoss (loss.py:43-293).
-    Automasking (`use_automasking`) is not ported: ROADMAP Queue A item
-    5."""
+    use_automasking: the last channel of the predictions and of rgb_gt is
+    the automask's baseline error (training/wrapper.py); it is stripped
+    off, and each ray's photometric error is capped at it."""
     criterion: str = "l2"
     invalid_policy: str = "strict"
     lambda_coarse: float = 1.0
@@ -79,12 +80,10 @@ class ReconstructionLoss:
     median_thresholding: bool = False
     alpha_reg_reduction: str = "ray"
     alpha_reg_fraction: float = 1.0 / 8
+    use_automasking: bool = False
 
     @classmethod
     def from_conf(cls, conf: dict, use_automasking: bool = False):
-        if use_automasking:
-            raise NotImplementedError(
-                "automasking is not ported: ROADMAP Queue A item 5")
         return cls(
             criterion=conf.get("criterion", "l2"),
             invalid_policy=conf.get("invalid_policy", "strict"),
@@ -99,7 +98,8 @@ class ReconstructionLoss:
             lambda_depth_smoothness=conf.get("lambda_depth_smoothness", 0),
             median_thresholding=conf.get("median_thresholding", False),
             alpha_reg_reduction=conf.get("alpha_reg_reduction", "ray"),
-            alpha_reg_fraction=conf.get("alpha_reg_fraction", 1 / 8))
+            alpha_reg_fraction=conf.get("alpha_reg_fraction", 1 / 8),
+            use_automasking=use_automasking)
 
     @property
     def ignore_invalid(self) -> bool:
@@ -133,9 +133,11 @@ class ReconstructionLoss:
                                device=invalid.device)
         raise NotImplementedError(self.invalid_policy)
 
-    def _rgb_loss(self, rgb_pred, rgb_gt_b, invalid_ray):
+    def _rgb_loss(self, rgb_pred, rgb_gt_b, invalid_ray, thresh_gt=None):
         rl = self._crit(rgb_pred, rgb_gt_b)         # (n, pc, h, w, nv, c|1)
         rl = torch.amin(rl, dim=-2)                 # min over views
+        if thresh_gt is not None:
+            rl = torch.minimum(rl, thresh_gt)
         if self.ignore_invalid:
             rl = rl * (1.0 - invalid_ray.to(rl.dtype))
         if self.median_thresholding:
@@ -160,14 +162,22 @@ class ReconstructionLoss:
                                    "loss_depth_smoothness")}
         for scale in range(n_scales):
             coarse, fine = data["coarse"][scale], data["fine"][scale]
-            rgb_gt_b = data["rgb_gt"][..., None, :]   # (n, pc, h, w, 1, c)
-            rgb_loss = self._rgb_loss(coarse["rgb"], rgb_gt_b,
-                                      invalid_coarse)
+            rgb_coarse, rgb_fine = coarse["rgb"], fine.get("rgb")
+            rgb_gt, thresh_gt = data["rgb_gt"], None
+            if self.use_automasking:
+                thresh_gt = rgb_gt[..., -1:]
+                rgb_gt = rgb_gt[..., :-1]
+                rgb_coarse = rgb_coarse[..., :-1]
+                if rgb_fine is not None:
+                    rgb_fine = rgb_fine[..., :-1]
+            rgb_gt_b = rgb_gt[..., None, :]           # (n, pc, h, w, 1, c)
+            rgb_loss = self._rgb_loss(rgb_coarse, rgb_gt_b, invalid_coarse,
+                                      thresh_gt)
             terms["loss_rgb_coarse"] = terms["loss_rgb_coarse"] \
                 + rgb_loss * self.lambda_coarse
             if len(fine) > 0:
-                fine_loss = self._rgb_loss(fine["rgb"], rgb_gt_b,
-                                           invalid_fine)
+                fine_loss = self._rgb_loss(rgb_fine, rgb_gt_b, invalid_fine,
+                                           thresh_gt)
                 terms["loss_rgb_fine"] = terms["loss_rgb_fine"] \
                     + fine_loss * self.lambda_fine
                 rgb_loss = (rgb_loss * self.lambda_coarse

@@ -171,7 +171,9 @@ class BTSNet(nn.Module):
                  mlp_fine_conf: Optional[dict] = None,
                  learn_empty: bool = True, inv_z: bool = True,
                  code_mode: str = "z", sample_color: bool = True,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, empty_empty: bool = False,
+                 color_interpolation: str = "bilinear",
+                 return_sample_depth: bool = False):
         super().__init__()
         if code_mode not in ("z", "distance"):
             raise NotImplementedError(code_mode)
@@ -179,6 +181,9 @@ class BTSNet(nn.Module):
         self.inv_z = inv_z
         self.code_mode = code_mode
         self.sample_color = sample_color
+        self.empty_empty = empty_empty
+        self.color_interpolation = color_interpolation
+        self.return_sample_depth = return_sample_depth
         self.compute_dtype = compute_dtype
         self.learn_empty = learn_empty
         self.encoder = make_backbone(dict(encoder_conf), compute_dtype)
@@ -204,15 +209,7 @@ class BTSNet(nn.Module):
         if conf.get("tile_fetch_region"):
             raise NotImplementedError(
                 "tile_fetch_region (the tile fetch) is not ported: ROADMAP "
-                "Queue A item 10")
-        unported = {k: v for k, v in (("empty_empty", False),
-                                      ("color_interpolation", "bilinear"),
-                                      ("return_sample_depth", False))
-                    if conf.get(k, v) != v}
-        if unported:
-            raise NotImplementedError(
-                f"model keys {sorted(unported)} are not ported (no shipped "
-                "config sets them): ROADMAP Queue A item 3")
+                "Queue A item 4")
         return cls(z_near=conf["z_near"], z_far=conf["z_far"],
                    encoder_conf=dict(conf["encoder"]),
                    code_conf=dict(conf.get("code", {})),
@@ -223,7 +220,12 @@ class BTSNet(nn.Module):
                    inv_z=conf.get("inv_z", True),
                    code_mode=conf.get("code_mode", "z"),
                    sample_color=conf.get("sample_color", True),
-                   compute_dtype=compute_dtype)
+                   compute_dtype=compute_dtype,
+                   empty_empty=conf.get("empty_empty", False),
+                   color_interpolation=conf.get("color_interpolation",
+                                                "bilinear"),
+                   return_sample_depth=conf.get("return_sample_depth",
+                                                False))
 
     # ------------------------------------------------------------ encode
     def encode(self, images, ks, poses_c2w, ids_encoder=None,
@@ -271,7 +273,8 @@ class BTSNet(nn.Module):
         colors = images_alt if images_alt is not None \
             else images * 0.5 + 0.5
         colors = colors[:, ir]
-        if self.compute_dtype == torch.bfloat16:
+        if self.compute_dtype == torch.bfloat16 and \
+                self.color_interpolation == "bilinear":
             colors = colors.to(torch.float16)
         return FeatureGrid(
             features=feats, f_ks=ks[:, ie], f_poses_w2c=poses_w2c[:, ie],
@@ -319,15 +322,24 @@ class BTSNet(nn.Module):
 
     def sample_colors(self, grid: FeatureGrid, xyz):
         """Colors of world points xyz (n, p, 3) in the render views
-        (behindthescenes_tpu/models/bts.py:360-386): bilinear, border
-        padding, the lerp weights in f32 (or wider). Returns (colors (n,
-        nv, p, 3), invalid (n, nv, p, 1) bool)."""
-        xy, _, _, invalid = geometry.project_points(
+        (behindthescenes_tpu/models/bts.py:360-386), border padding:
+        bilinear with the lerp weights in f32 (or wider), or
+        `grid_sample_2d`'s other mode (nearest). return_sample_depth
+        appends each point's distance from the view. Returns (colors (n,
+        nv, p, C[+1]), invalid (n, nv, p, 1) bool)."""
+        xy, _, distance, invalid = geometry.project_points(
             xyz, grid.c_poses_w2c, grid.c_ks, eps=EPS)
-        colors = grid_sample_2d_packed(grid.color_imgs, xy)
+        if self.color_interpolation == "bilinear":
+            colors = grid_sample_2d_packed(grid.color_imgs, xy)
+        else:
+            colors = grid_sample_2d(grid.color_imgs, xy, align_corners=False,
+                                    padding_mode="border",
+                                    mode=self.color_interpolation)
         if grid.c_combine is not None:
             colors, invalid = _combine_first_valid(colors, invalid,
                                                    grid.c_combine)
+        if self.return_sample_depth:
+            colors = torch.cat([colors, distance.to(colors.dtype)], -1)
         return colors, invalid
 
     def query(self, grid: FeatureGrid, xyz, coarse: bool = True,
@@ -345,6 +357,8 @@ class BTSNet(nn.Module):
             feats, invalid_features = feats[:, 0], invalid_features[:, 0]
         mlp_output = self._mlp(coarse)(feats, combine_inner_dims=(n_pts,))
         sigma = self._density(mlp_output[..., :1])
+        if self.empty_empty:
+            sigma = torch.where(invalid_features, 0.0, sigma)
         if only_density:
             nv = grid.n_render_groups
             rgb = torch.zeros((n, n_pts, nv * 3), dtype=sigma.dtype,

@@ -301,10 +301,11 @@ _BACKBONE_KEYS = {
 
 
 def make_backbone(conf: dict, compute_dtype=torch.float32):
-    """Backbone factory: the monodepth2 and dummy types. remat, pretrained
-    and cp_location are accepted and not used here: the trainer refuses
-    the ImageNet initialisation they ask for (the synthetic configs set
-    none of them)."""
+    """Backbone factory: the monodepth2 and dummy types. remat,
+    pretrained, pretrained_strict and cp_location are accepted and not
+    used here: the trainer's init_state applies the ImageNet
+    initialisation they ask for after the net is built
+    (import_torch.apply_pretrained_encoder)."""
     btype = conf.get("type", "monodepth2")
     if btype not in _BACKBONE_KEYS:
         raise NotImplementedError(f"encoder type {btype!r} is not ported")

@@ -114,6 +114,20 @@ class FineDraws:
                            for t in (self.u, self.jitter, self.normals)))
 
 
+def draw_fine(rays, cfg: RendererConfig,
+              generator: torch.Generator | None = None) -> FineDraws:
+    """Every draw of the fine pass over rays (n, B, 8) at once, from
+    `generator`: a chunked render then cuts them with its rays, and a
+    chunk that is re-run for the backward pass reads the same values."""
+    n_imp = cfg.n_fine - cfg.n_fine_depth
+    shape = rays.shape[:-1]
+    return FineDraws(
+        *(_draw(None, shape + (n_imp,), rays, generator) if n_imp > 0
+          else None for _ in range(2)),
+        normals=_draw(None, shape + (cfg.n_fine_depth,), rays, generator,
+                      normal=True) if cfg.n_fine_depth > 0 else None)
+
+
 def _searchsorted_right(cdf, u):
     """Batched searchsorted(right=True): the count of cdf entries <= u.
 
@@ -191,7 +205,10 @@ def weights_from_sigma(sigma, z_samp, cfg: RendererConfig):
     reference's `+ 1e-10`, as in the JAX package."""
     deltas = z_samp[..., 1:] - z_samp[..., :-1]
     deltas = torch.cat([deltas, torch.full_like(deltas[..., :1], 1e10)], -1)
-    alphas = 1.0 - torch.exp(-deltas.abs() * torch.relu(sigma))
+    # |delta| with jnp.abs's gradient, 1 at 0 (torch's abs has 0 there):
+    # tied samples pass their gradient on as in the JAX package.
+    deltas = torch.where(deltas >= 0, deltas, -deltas)
+    alphas = 1.0 - torch.exp(-deltas * torch.relu(sigma))
     if cfg.hard_alpha_cap:
         alphas = torch.cat([alphas[..., :-1],
                             torch.ones_like(alphas[..., -1:])], -1)
@@ -316,8 +333,10 @@ def render_rays(query_fn: Callable, rays, cfg: RendererConfig,
             fine_out = composite_merged(query_fn, rays, z_coarse, coarse_out,
                                         torch.cat(new_samps, -1), cfg)
         else:
+            # Stable, as jnp.sort: tied samples keep their order, and so
+            # their gradients.
             z_combine = torch.sort(torch.cat([z_coarse] + new_samps, -1),
-                                   -1).values
+                                   dim=-1, stable=True).values
             fine_out = composite(query_fn, rays, z_combine, cfg,
                                  coarse=False, generator=generator)
         outputs["fine"] = _prune(fine_out, *want)

@@ -10,6 +10,7 @@ from behindthescenes_tpu_torch.datasets.factory import make_datasets
 from behindthescenes_tpu_torch.datasets.loader import DataLoader
 from behindthescenes_tpu_torch.training.harness import base_training
 from behindthescenes_tpu_torch.training.trainer import BTSTrainer
+from behindthescenes_tpu_torch.training.visualize import make_tb_visualizer
 
 
 def bts_get_dataflow(config):
@@ -21,7 +22,7 @@ def bts_get_dataflow(config):
     if config["data"].get("host_shard"):
         raise NotImplementedError(
             "per-host dataset shards (multi-GPU training) are not ported: "
-            "ROADMAP Queue A item 11")
+            "ROADMAP Queue A item 5")
     train_ds, test_ds = make_datasets(config["data"])
 
     test_ds = copy.copy(test_ds)
@@ -60,11 +61,12 @@ def _tensorboard(config):
 
 def bts_training(config, device=None, mark=None, on_iteration=None):
     """The BTS training run of `config` through the harness, with train and
-    validation scalars in TensorBoard where it is importable. The
-    visualisation hook (training/visualize.py) is not ported, so it is
-    None. Returns the trainer."""
+    validation scalars and the visualisation grids
+    (training/visualize.py, every `visualize_every` iterations) in
+    TensorBoard where it is importable. Returns the trainer."""
     trainer = BTSTrainer(config, device=device)
     writer = _tensorboard(config)
+    visualize = make_tb_visualizer(writer) if writer is not None else None
     log_tb_every = config.get("log_tb_train_every_iters", 50)
 
     def iteration(it, trainer, loss_dict):
@@ -82,7 +84,7 @@ def bts_training(config, device=None, mark=None, on_iteration=None):
 
     try:
         return base_training(config, bts_get_dataflow, trainer=trainer,
-                             on_iteration=iteration,
+                             visualize=visualize, on_iteration=iteration,
                              on_validation=on_validation, mark=mark)
     finally:
         if writer is not None:

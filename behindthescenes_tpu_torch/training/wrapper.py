@@ -5,8 +5,8 @@ models/bts/trainer.py:32-276).
 
 `forward(batch, ids, train, draws)` encodes, samples rays, renders and
 reconstructs. The step's random choices are a `Draws` record: the flip,
-the ray sampler's choices and the coarse jitter. Each field left None is
-drawn from the generator passed in.
+the ray sampler's choices, the coarse jitter and the fine pass's draws.
+Each field left None is drawn from the generator passed in.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import torch
 
 from behindthescenes_tpu_torch import geometry
 from behindthescenes_tpu_torch import renderer as renderer_lib
+from behindthescenes_tpu_torch.losses import compute_errors_l1ssim
 from behindthescenes_tpu_torch.models.bts import BTSNet
 from behindthescenes_tpu_torch.models.image_processor import (
     RGBProcessor, make_image_processor)
@@ -34,10 +35,14 @@ class Draws:
     flip: flip the encoder's input (bool); rays: the train sampler's
     choices (ray_sampler.PatchDraws, or pixel indices (n, R) for the
     random sampler); z_jitter: the coarse jitter (n, R, n_coarse) in [0,
-    1)."""
+    1); fine: the fine pass's importance and around-depth draws
+    (renderer.FineDraws of (n, R, ...) tensors). Every scale takes the
+    same draws, as every scale of the JAX step takes the one k_render;
+    the scales after the first render no fine pass."""
     flip: Optional[bool] = None
     rays: Any = None
     z_jitter: Optional[torch.Tensor] = None
+    fine: Optional[renderer_lib.FineDraws] = None
 
 
 class BTSWrapper:
@@ -47,6 +52,14 @@ class BTSWrapper:
                  config: dict):
         self.net = net
         self.renderer_cfg = renderer_cfg
+        if renderer_cfg.fine_reuse_coarse and net.mlp_fine is not None:
+            # With a distinct fine MLP the reference fine pass re-queries
+            # the coarse z's through it (nerf.py:230-238 and the coarse
+            # flag's dispatch, models_bts.py:311-321); values cached from
+            # the coarse MLP would differ.
+            raise ValueError(
+                "renderer.fine_reuse_coarse requires mlp_fine: empty "
+                "(the fine pass must evaluate the same network as coarse)")
         self.z_near = config["z_near"]
         self.z_far = config["z_far"]
         self.ray_batch_size = config.get("ray_batch_size", 2048)
@@ -57,9 +70,7 @@ class BTSWrapper:
         self.patch_size = config.get("patch_size", 16)
         self.prediction_mode = config.get("prediction_mode", "multiscale")
         self.flip_augmentation = config.get("flip_augmentation", False)
-        if config.get("use_automasking", False):
-            raise NotImplementedError(
-                "automasking is not ported: ROADMAP Queue A item 5")
+        self.use_automasking = config.get("use_automasking", False)
         self.remat_render = config.get("remat_render", False)
         self.train_ray_chunk = config.get("train_ray_chunk", 512)
         self.eval_ray_chunk = config.get("eval_ray_chunk", 16384)
@@ -68,10 +79,12 @@ class BTSWrapper:
         self.val_image_processor = RGBProcessor()
         self.frames_render = list(range(frames_render)) \
             if isinstance(frames_render, int) else list(frames_render)
+        # The automask's baseline error rides along as one more channel.
         self.train_sampler = make_ray_sampler(
             self.sample_mode, self.ray_batch_size, self.z_near, self.z_far,
             patch_size=self.patch_size,
-            channels=self.train_image_processor.channels)
+            channels=self.train_image_processor.channels
+            + int(self.use_automasking))
         self.val_sampler = ImageRaySampler(self.z_near, self.z_far)
 
     def select_views(self, rng: np.random.Generator, v: int,
@@ -97,10 +110,6 @@ class BTSWrapper:
         Returns the data dict: coarse / fine per-scale lists, rgb_gt,
         rays."""
         cfg = renderer_cfg or self.renderer_cfg
-        if cfg.using_fine:
-            raise NotImplementedError(
-                "training with the fine pass (n_fine > 0) is not ported: "
-                "ROADMAP Queue A item 5")
         draws = draws or Draws()
         net = self.net
         images, projs = batch["imgs"], batch["projs"]
@@ -109,6 +118,9 @@ class BTSWrapper:
         poses = geometry.rebase_poses_to_keyframe(batch["poses"])
         images_ip = (self.train_image_processor if train
                      else self.val_image_processor)(images)
+        if self.use_automasking and train:
+            images_ip = torch.cat(
+                [images_ip, automask_error(images_ip, ids.ids_loss)], -1)
 
         do_flip = False
         if self.flip_augmentation and train:
@@ -130,36 +142,44 @@ class BTSWrapper:
         all_rays, all_rgb_gt = sampler.sample(
             images_ip[:, il], poses[:, il], projs[:, il], draws=draws.rays,
             generator=generator)
+        # One draw for every scale, as the JAX package's one k_render.
         z_jitter = draws.z_jitter
         if z_jitter is None:
-            # One draw for every scale, as the JAX package's one k_render.
             z_jitter = torch.rand(all_rays.shape[:2] + (cfg.n_coarse,),
                                   generator=generator, device=dev)
+        fine_draws = draws.fine
+        if cfg.using_fine and fine_draws is None:
+            fine_draws = renderer_lib.draw_fine(all_rays, cfg, generator)
 
         data = dict(batch)
         data["coarse"], data["fine"] = [], []
         scales = list(self.net_scales()) \
             if self.prediction_mode == "multiscale" else [0]
-        for scale in scales:
+        for si, scale in enumerate(scales):
+            scale_cfg = cfg if si == 0 else dataclasses.replace(
+                cfg, n_fine=0, n_fine_depth=0)
+
             def query_fn(xyz, coarse, _scale=scale):
                 return net.query(grid, xyz, coarse=coarse, scale=_scale)
+            kw = dict(z_jitter=z_jitter, want_weights=True, want_alphas=True,
+                      fine_draws=fine_draws if scale_cfg.using_fine
+                      else None)
             if train and self.remat_render:
                 render_dict = renderer_lib.render_rays_chunked(
-                    query_fn, all_rays, cfg, ray_chunk=self.train_ray_chunk,
-                    remat_body=True, z_jitter=z_jitter, want_weights=True,
-                    want_alphas=True, want_rgb_samps=True)
+                    query_fn, all_rays, scale_cfg,
+                    ray_chunk=self.train_ray_chunk, remat_body=True,
+                    want_rgb_samps=True, **kw)
             elif not train:
                 # A 192x640 frame's per-sample tensors take about 17.5 GB
                 # at once; render it in chunks, without rgb_samps.
                 render_dict = renderer_lib.render_rays_chunked(
-                    query_fn, all_rays, cfg, ray_chunk=self.eval_ray_chunk,
-                    z_jitter=z_jitter, want_weights=True, want_alphas=True)
+                    query_fn, all_rays, scale_cfg,
+                    ray_chunk=self.eval_ray_chunk, **kw)
             else:
                 render_dict = renderer_lib.render_rays(
-                    query_fn, all_rays, cfg, z_jitter=z_jitter,
-                    want_weights=True, want_alphas=True,
-                    want_rgb_samps=True)
-            render_dict["fine"] = dict(render_dict["coarse"])
+                    query_fn, all_rays, scale_cfg, want_rgb_samps=True, **kw)
+            if "fine" not in render_dict:
+                render_dict["fine"] = dict(render_dict["coarse"])
             render_dict["rgb_gt"] = all_rgb_gt
             render_dict = sampler.reconstruct(render_dict)
             data["coarse"].append(render_dict["coarse"])
@@ -175,6 +195,20 @@ class BTSWrapper:
         if mark:
             mark("render")
         return data
+
+
+def automask_error(images_ip, ids_loss):
+    """The automask's baseline (reference trainer.py:201-206): the l1+SSIM
+    error between each view and each loss view, both at 0.5x, averaged
+    over the loss views. images_ip (n, v, h, w, 3) -> (n, v, h, w, 1)."""
+    n, v, h, w, c = images_ip.shape
+    il = torch.as_tensor(np.asarray(ids_loss, dtype=np.int64),
+                         device=images_ip.device)
+    cand = images_ip[:, il] * 0.5                       # (n, nc, h, w, c)
+    nc = cand.shape[1]
+    a = (images_ip * 0.5)[:, :, :, :, None, :].expand(n, v, h, w, nc, c)
+    b = cand.permute(0, 2, 3, 1, 4)[:, None].expand(n, v, h, w, nc, c)
+    return compute_errors_l1ssim(a, b).mean(-2)
 
 
 def compute_depth_metrics(data: dict, clip_max: float = 80.0) -> dict:

@@ -37,7 +37,12 @@ the RE10K-shape model (eval_synthetic_re10k_nvs: 8 indoor scenes at
 time split into encode and render and its peak memory, and no decode
 kernel launched; phase 12 depth through exp_synthetic_re10k (self-view,
 distance code) and eval_synthetic_flagship (bf16, through the shared_z
-kernel, whose launches it counts). Phase 13 holds the fine pass's value
+kernel, whose launches it counts), and the converged exp_synthetic
+checkpoint (media/weights/synthetic_conv_step8400.npz) through
+eval_synthetic (4 scenes at 48x64, bf16, the shared_z kernel at H = 32:
+each launch held against the plain version, then timed) and
+eval_synthetic_nvs, each also held to the JAX accuracy gate's bounds
+(tests/test_accuracy_gate.py). Phase 13 holds the fine pass's value
 on the thin-structure checkpoint: 8 coarse + 8 fine beats 16 flat, and
 reusing the coarse samples equals re-querying them.
 
@@ -67,6 +72,16 @@ resumed micro-step to the JAX harness's rules, checks that no decode
 kernel ran, holds run_validation of the checkpoint to the JAX package's
 CPU means, and splits a micro-step at the trainer's mark points, beside
 the loader's wait, the update, checkpoint and validation times.
+
+Phase 17 trains the fast profiles at full width from the flagship
+checkpoint, with the configs' batch (4 items at 192x640, 2048 rays):
+exp_synthetic_flagship_fast (24 coarse + 16 importance-fine samples
+reusing the coarse ones) and _fast2 (8 of the 16 around the coarse
+depth). For each, one f32 step on the card against the host's float64
+step, the reuse step against the re-query step on the card, and 30 bf16
+steps with their median step split at the trainer's mark points and the
+peak memory; then one f32 step of the first with automasking and one
+with the patch image processor, each against the host.
 
 Prints one progress line per phase (flushed, with the phase's seconds),
 then a JSON line of frame times, metrics and training times, one JSON line
@@ -174,6 +189,7 @@ STAGES = ("encode", "render", "loss", "backward", "optimizer")
 # rounding; JAX_GAP bounds it.
 RE10K_WEIGHTS = "media/weights/re10k_synth_conv.npz"
 THIN_WEIGHTS = "media/weights/thin_synth_conv.npz"
+STEP8400_WEIGHTS = "media/weights/synthetic_conv_step8400.npz"
 CONFIG_RUNS = (
     ("10", "eval_synthetic_flagship_nvs", WEIGHTS,
      {"psnr": 21.737083151764843, "ssim": 0.8550886325707533}),
@@ -183,13 +199,29 @@ CONFIG_RUNS = (
      {"abs_rel": 0.11355338990688324, "a1": 0.9073164198133682}),
     ("12", "eval_synthetic_flagship", WEIGHTS,
      {"abs_rel": 0.2174396589398384, "a1": 0.5499790945193574}),
+    # exp_synthetic's ResNet-18 (an f16 export), 4 scenes at 48x64, 24
+    # samples, bf16; the JAX means from `JAX_PLATFORMS=cpu python3
+    # tools/step8400_reference.py`.
+    ("12", "eval_synthetic", STEP8400_WEIGHTS,
+     {"abs_rel": 0.16368312761187553, "a1": 0.7637174431043636}),
+    ("12", "eval_synthetic_nvs", STEP8400_WEIGHTS,
+     {"psnr": 20.785650029574413, "ssim": 0.8333972933502852}),
 )
 JAX_GAP = {"psnr": 0.15, "ssim": 0.005, "abs_rel": 0.005, "a1": 0.01}
 # The JAX package's own NVS gate floors for these families
 # (tests/test_nvs_gate_re10k.py:36-37, measured at 64x96;
 # tests/test_train_anneal_gate.py:31-32, flagship shape at 96x320).
 NVS_FLOORS = {"eval_synthetic_re10k_nvs": {"psnr": 27.2, "ssim": 0.87},
-              "eval_synthetic_flagship_nvs": {"psnr": 17.9, "ssim": 0.70}}
+              "eval_synthetic_flagship_nvs": {"psnr": 17.9, "ssim": 0.70},
+              "eval_synthetic_nvs": {"psnr": 19.8, "ssim": 0.80}}
+# The JAX accuracy gate of synthetic_conv_step8400.npz
+# (tests/test_accuracy_gate.py:116-117): abs_rel under, a1 over.
+DEPTH_GATES = {"eval_synthetic": {"abs_rel": 0.21, "a1": 0.63}}
+# Rows of CONFIG_RUNS whose every kernel launch is recorded and held
+# against its plain version: the kernel, its record and the width H that
+# the config's model gives it (exp_synthetic's ResnetFC is 32 wide; bf16,
+# so shared_z takes bf16 inputs).
+KERNEL_ROWS = {"eval_synthetic": ("shared_z", "shared_z_bf16", 32)}
 # Timed NVS frames per config (after one untimed frame).
 NVS_TIMED_FRAMES = 5
 # Phase 13 (tests/test_fine_gate_thin.py:41,103): the thin-structure
@@ -274,6 +306,33 @@ K360_CACHED_STEPS = 8
 # The micro-step's points: the harness's "wait" (the next batch asked for)
 # and "data" (on the card), then the train step's STAGES.
 RUN_POINTS = ("wait", "data") + STAGES
+
+# Phase 17: the fast training profiles at full width from WEIGHTS, with
+# the configs' batch (4 items at 192x640, 2048 patch rays):
+# exp_synthetic_flagship_fast (24 coarse + 16 importance-fine samples
+# reusing the coarse ones) and _fast2 (8 of the 16 around the coarse
+# depth, depth_std 0.25). Each: one f32 step on the card against the host
+# in float64 (LOSS_RTOL, GRAD_NORM_RTOL), the reuse step against the
+# re-query step on the card (REUSE_LOSS_RTOL, REUSE_GRAD_RTOL: the same
+# composite in another order), and FAST_STEPS bf16 steps. Then one f32
+# step of the first with each of FAST_VARIANTS' model_conf changes
+# against the host. _fast2's gradient norms are held to 3e-3: through its
+# around-depth samples (placed at the coarse depth, which the network
+# moves) every f32 step is that far from float64 on a few small tensors,
+# the host's own f32 step as far as the card's (1.37e-3 and 1.45e-3 on
+# mlp_coarse.lin_out.bias; `python3 tools/train_precision.py
+# exp_synthetic_flagship_fast2`), where the other profiles stay under
+# GRAD_NORM_RTOL.
+FAST_CONFIGS = ("exp_synthetic_flagship_fast", "exp_synthetic_flagship_fast2")
+FAST_GRAD_NORM_RTOL = {"exp_synthetic_flagship_fast2": 3e-3}
+FAST_STEPS = 30
+REUSE_LOSS_RTOL = 1e-5
+REUSE_GRAD_RTOL = 1e-4
+FAST_VARIANTS = {
+    "automasking": {"use_automasking": True},
+    "patch processor": {"image_processor": {"type": "patch",
+                                            "patch_size": 3}},
+}
 
 _T0 = time.perf_counter()
 
@@ -506,10 +565,12 @@ def train_batch(conf: dict) -> dict:
 
 def numpy_draws(conf: dict, batch: dict, seed: int):
     """A training step's random choices from numpy's generator: patch views
-    among the loss views, patch corners, and the coarse jitter."""
+    among the loss views, patch corners, the coarse jitter, and with the
+    fine pass its importance uniforms and around-depth normals."""
     import numpy as np
     import torch
     from behindthescenes_tpu_torch.ray_sampler import PatchDraws
+    from behindthescenes_tpu_torch.renderer import FineDraws
     from behindthescenes_tpu_torch.training.view_select import select_views
     from behindthescenes_tpu_torch.training.wrapper import Draws
     mc = conf["model_conf"]
@@ -523,10 +584,24 @@ def numpy_draws(conf: dict, batch: dict, seed: int):
     views = rng.integers(0, len(ids.ids_loss), (n, pc))
     ys = rng.integers(0, h - p, (n, pc))
     xs = rng.integers(0, w - p, (n, pc))
-    jitter = rng.uniform(size=(n, rays, conf["renderer"]["n_coarse"]))
+    rc = conf["renderer"]
+    jitter = rng.uniform(size=(n, rays, rc["n_coarse"]))
+    fine = None
+    n_fd = rc.get("n_fine_depth", 0)
+    n_imp = rc.get("n_fine", 0) - n_fd
+    if rc.get("n_fine", 0) > 0:
+        def f32(a):
+            return None if a is None else torch.as_tensor(
+                a, dtype=torch.float32)
+        fine = FineDraws(
+            *(f32(rng.uniform(size=(n, rays, n_imp))) if n_imp > 0 else None
+              for _ in range(2)),
+            normals=f32(rng.standard_normal((n, rays, n_fd)))
+            if n_fd > 0 else None)
     return Draws(rays=PatchDraws(*(torch.as_tensor(a) for a in
                                    (views, ys, xs))),
-                 z_jitter=torch.as_tensor(jitter, dtype=torch.float32))
+                 z_jitter=torch.as_tensor(jitter, dtype=torch.float32),
+                 fine=fine)
 
 
 def on_device(batch: dict, draws, dev, dtype=None):
@@ -535,14 +610,19 @@ def on_device(batch: dict, draws, dev, dtype=None):
     import dataclasses
     import torch
     from behindthescenes_tpu_torch.ray_sampler import PatchDraws
+    from behindthescenes_tpu_torch.renderer import FineDraws
     tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    jitter = draws.z_jitter.to(dev)
     if dtype is not None:
         tb = {k: v.to(dtype) if v.is_floating_point() else v
               for k, v in tb.items()}
-        jitter = jitter.to(dtype)
+
+    def move(t):
+        return None if t is None else t.to(dev, dtype or t.dtype)
     rays = PatchDraws(*(t.to(dev) for t in dataclasses.astuple(draws.rays)))
-    return tb, dataclasses.replace(draws, rays=rays, z_jitter=jitter)
+    fine = None if draws.fine is None else FineDraws(
+        *(move(t) for t in dataclasses.astuple(draws.fine)))
+    return tb, dataclasses.replace(draws, rays=rays,
+                                   z_jitter=move(draws.z_jitter), fine=fine)
 
 
 def make_trainer(conf: dict, weights: str, dev, dtype):
@@ -557,47 +637,64 @@ def make_trainer(conf: dict, weights: str, dev, dtype):
     return trainer
 
 
-def train_parity(conf: dict, weights: str, batch: dict, draws,
-                 dev) -> dict:
-    """One f32 step from `weights` on `dev`, and the same step (batch,
-    draws, views) on the host CPU in float64. Raises unless the loss
-    agrees to LOSS_RTOL and every parameter's gradient norm above
-    GRAD_NORM_FLOOR of the largest to GRAD_NORM_RTOL, or if the step on
-    `dev` launched a decode kernel."""
+def one_step(conf: dict, weights: str, batch: dict, draws, dev,
+             dtype) -> tuple:
+    """One train step from `weights` on `dev` in `dtype` with these draws.
+    Returns (loss, {parameter: gradient norm}, the decode kernels'
+    launches); raises if an f32 step launched a decode kernel."""
     import torch
     from behindthescenes_tpu_torch.ops import kernels
-    out = {}
-    for d, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
-        trainer = make_trainer(conf, weights, d, dtype)
-        tb, td = on_device(batch, draws, d, dtype)
-        kernels.reset_launch_counts()
-        loss = float(trainer.train_step(tb, td)["loss"])
-        launched = kernels.launch_counts()
-        if dtype == torch.float32 and any(launched.values()):
-            raise AssertionError(f"the train step launched decode kernels: "
-                                 f"{launched}")
-        norms = {n: p.grad.double().norm().item()
-                 for n, p in trainer.net.named_parameters()
-                 if p.grad is not None}
-        out[dtype] = (loss, norms, launched)
-    (loss_d, norms_d, launched), (loss_h, norms_h, _) = \
-        out[torch.float32], out[torch.float64]
+    trainer = make_trainer(conf, weights, dev, dtype)
+    tb, td = on_device(batch, draws, dev, dtype)
+    kernels.reset_launch_counts()
+    loss = float(trainer.train_step(tb, td)["loss"])
+    launched = kernels.launch_counts()
+    if dtype == torch.float32 and any(launched.values()):
+        raise AssertionError(f"the train step launched decode kernels: "
+                             f"{launched}")
+    norms = {n: p.grad.double().norm().item()
+             for n, p in trainer.net.named_parameters()
+             if p.grad is not None}
+    return loss, norms, launched
+
+
+def step_gap(got: tuple, want: tuple, loss_rtol: float, grad_rtol: float,
+             what: str) -> dict:
+    """The loss of step `got` against `want`'s within loss_rtol, and each
+    parameter's gradient norm above GRAD_NORM_FLOOR of the largest within
+    grad_rtol, relative; raises where not."""
+    (loss_d, norms_d, launched), (loss_h, norms_h, _) = got, want
     rel = abs(loss_d - loss_h) / abs(loss_h)
-    if rel > LOSS_RTOL:
-        raise AssertionError(f"loss {loss_d} on {dev} vs {loss_h} on "
-                             f"the host: {rel:.2e} relative")
+    if rel > loss_rtol:
+        raise AssertionError(f"{what}: loss {loss_d} vs {loss_h}: "
+                             f"{rel:.2e} relative")
     if set(norms_d) != set(norms_h):
-        raise AssertionError("gradients of different parameters")
+        raise AssertionError(f"{what}: gradients of different parameters")
     floor = GRAD_NORM_FLOOR * max(norms_h.values())
     devs = {n: abs(norms_d[n] - v) / v for n, v in norms_h.items()
             if v > floor}
     worst = max(devs, key=devs.get)
-    if devs[worst] > GRAD_NORM_RTOL:
-        raise AssertionError(f"gradient norm of {worst}: {norms_d[worst]} "
-                             f"on {dev} vs {norms_h[worst]} on the host")
+    if devs[worst] > grad_rtol:
+        raise AssertionError(f"{what}: gradient norm of {worst}: "
+                             f"{norms_d[worst]} vs {norms_h[worst]}")
     return {"loss": loss_d, "loss_host": loss_h, "loss_rel": rel,
             "grad_norm_rel_max": devs[worst], "grad_norm_worst": worst,
             "tensors": len(devs), "launches": launched}
+
+
+def train_parity(conf: dict, weights: str, batch: dict, draws,
+                 dev, grad_rtol: float = GRAD_NORM_RTOL) -> dict:
+    """One f32 step from `weights` on `dev`, and the same step (batch,
+    draws, views) on the host CPU in float64. Raises unless the loss
+    agrees to LOSS_RTOL and every parameter's gradient norm above
+    GRAD_NORM_FLOOR of the largest to grad_rtol, or if the step on
+    `dev` launched a decode kernel."""
+    import torch
+    return step_gap(one_step(conf, weights, batch, draws, dev,
+                             torch.float32),
+                    one_step(conf, weights, batch, draws, "cpu",
+                             torch.float64),
+                    LOSS_RTOL, grad_rtol, f"{dev} vs the host")
 
 
 def cuda_clock():
@@ -658,6 +755,91 @@ def train_steps(conf: dict, weights: str, batch: dict, draws, dev,
                                                      events[-1][1]))
     return {"losses": losses, "launches": launched,
             "median_ms": {k: statistics.median(v) for k, v in split.items()}}
+
+
+def fast_training_phase(dev, card: str, clock_fn, weights: str = WEIGHTS,
+                        overrides=(), steps: int = FAST_STEPS,
+                        timed_from: int = TIMED_FROM) -> dict:
+    """Phase 17 (see FAST_CONFIGS) on `dev`, the configs with the
+    `overrides`, printing each result beside the card. Raises if a check
+    fails or a decode kernel was launched. Returns the phase's record."""
+    import copy
+    import torch
+    from behindthescenes_tpu_torch import train as train_cli
+    cuda = torch.device(dev).type == "cuda"
+    out = {"card": card, "steps": steps, "timed_from": timed_from}
+    for name in FAST_CONFIGS:
+        t = time.perf_counter()
+        conf = train_cli.config(name, overrides=overrides)
+        rc = conf["renderer"]
+        if not (rc["n_fine"] > 0 and rc["fine_reuse_coarse"]):
+            raise AssertionError(f"{name}: not a fine pass with reuse: {rc}")
+        batch = train_batch(conf)
+        draws = numpy_draws(conf, batch, TRAIN_SEED)
+        grad_rtol = FAST_GRAD_NORM_RTOL.get(name, GRAD_NORM_RTOL)
+        parity = train_parity(conf, weights, batch, draws, dev, grad_rtol)
+        requery = copy.deepcopy(conf)
+        requery["renderer"]["fine_reuse_coarse"] = False
+        reuse = step_gap(
+            one_step(conf, weights, batch, draws, dev, torch.float32),
+            one_step(requery, weights, batch, draws, dev, torch.float32),
+            REUSE_LOSS_RTOL, REUSE_GRAD_RTOL, f"{name} reuse vs re-query")
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        res = train_steps(conf, weights, batch, draws, dev, True, clock_fn(),
+                          steps, timed_from)
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
+            if cuda else None
+        out[name] = {"renderer": {k: rc.get(k) for k in (
+            "n_coarse", "n_fine", "n_fine_depth", "depth_std")},
+            "parity": parity, "reuse_vs_requery": reuse, "bf16": res}
+        med, peak = res["median_ms"], res["max_memory_allocated"]
+        print(f"[chip_smoke] {name} f32 step: loss {parity['loss']:.8f} on "
+              f"the card, {parity['loss_host']:.8f} on the host in float64 "
+              f"({parity['loss_rel']:.2e} relative, bound {LOSS_RTOL}); "
+              f"gradient norms within {parity['grad_norm_rel_max']:.2e} "
+              f"(bound {grad_rtol}; worst {parity['grad_norm_worst']}); "
+              "reuse vs re-query on the card: "
+              f"loss {reuse['loss_rel']:.2e}, gradient norms "
+              f"{reuse['grad_norm_rel_max']:.2e} relative (bounds "
+              f"{REUSE_LOSS_RTOL}, {REUSE_GRAD_RTOL})", flush=True)
+        print(f"[chip_smoke] {name} train bf16 ({card}): loss "
+              f"{res['losses'][0]:.6f} -> {res['losses'][-1]:.6f} over "
+              f"{steps} steps; median step {med['step']:.2f} ms over steps "
+              f"{timed_from}-{steps - 1}: "
+              + ", ".join(f"{k} {med[k]:.2f}" for k in STAGES)
+              + " ms; peak memory " + ("not measured" if peak is None
+                                       else f"{peak / 2**30:.2f} GiB")
+              + f"; decode kernel launches {json.dumps(res['launches'])}",
+              flush=True)
+        log(f"phase 17 {name}", "the card's step agrees with the host's; "
+            "reuse equals re-query; losses finite and falling", t)
+    out["variants"] = {}
+    for label, change in FAST_VARIANTS.items():
+        t = time.perf_counter()
+        conf = train_cli.config(FAST_CONFIGS[0], overrides=overrides)
+        conf["model_conf"].update(copy.deepcopy(change))
+        batch = train_batch(conf)
+        parity = train_parity(conf, weights, batch,
+                              numpy_draws(conf, batch, TRAIN_SEED), dev)
+        out["variants"][label] = parity
+        print(f"[chip_smoke] {FAST_CONFIGS[0]} with {label} f32 step: loss "
+              f"{parity['loss']:.8f} on the card, {parity['loss_host']:.8f}"
+              f" on the host in float64 ({parity['loss_rel']:.2e} relative,"
+              f" bound {LOSS_RTOL}); gradient norms within "
+              f"{parity['grad_norm_rel_max']:.2e} (bound {GRAD_NORM_RTOL})",
+              flush=True)
+        log(f"phase 17 {label}", "the card's step agrees with the host's", t)
+    return out
+
+
+def shared_z_bf16_piece(h: int, k: int) -> str:
+    """The piece of ptxas's name of the bf16 shared_z kernel that serves
+    width h and k samples: csrc/shared_z.cu's launch_bf16_tiles gives a
+    warp 4, 2 or 1 tiles of 16 samples, as many as divide k's tiles."""
+    tiles = -(-k // 16)
+    kt = 4 if tiles % 4 == 0 else 2 if tiles % 2 == 0 else 1
+    return f"shared_z_bf16_kernelILi{h}ELi{kt}E"
 
 
 def general_depth(net, batches, selfview_per_scene, generator) -> dict:
@@ -757,8 +939,12 @@ def config_phase(name: str, checkpoint: str, jax_means: dict, dev, clock,
                  overrides=(), frames: int = NVS_TIMED_FRAMES) -> dict:
     """One config through the task runner, with the decode kernels'
     launches counted from 0 and the peak memory. Raises unless every mean
-    is finite and within JAX_GAP of jax_means, and the NVS means meet
-    NVS_FLOORS. NVS configs also get their frame time split."""
+    is finite and within JAX_GAP of jax_means, and the means meet
+    NVS_FLOORS and DEPTH_GATES. NVS configs also get their frame time
+    split. For a row of KERNEL_ROWS, raises unless its kernel, and no
+    other, was launched once per scene at the row's width, each launch
+    within tolerance of the plain version on its arguments; its first
+    launch's (args, kwargs) are res["launch"]."""
     import math
     import torch
     from behindthescenes_tpu_torch.ops import kernels
@@ -766,7 +952,9 @@ def config_phase(name: str, checkpoint: str, jax_means: dict, dev, clock,
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    conf, means, calls = config_eval(name, checkpoint, dev, overrides)
+    with recorded_kernel_args() as (_, state):
+        state["mode"], state["calls"] = name, []
+        conf, means, calls = config_eval(name, checkpoint, dev, overrides)
     launched = kernels.launch_counts()
     res = {"config": name, "checkpoint": checkpoint, "means": means,
            "jax_means": jax_means,
@@ -775,6 +963,18 @@ def config_phase(name: str, checkpoint: str, jax_means: dict, dev, clock,
            else None}
     if not calls or not all(math.isfinite(v) for v in means.values()):
         raise AssertionError(f"{name}: {len(calls)} scenes, means {means}")
+    if name in KERNEL_ROWS:
+        kernel, rec, h = KERNEL_ROWS[name]
+        launch_calls = state["calls"]
+        widths = [args[0].shape[1] for _, args, _ in launch_calls]
+        want = {k: len(calls) if k == kernel else 0 for k in launched}
+        if launched != want or widths != [h] * len(calls):
+            raise AssertionError(f"{name}: kernel launches {launched} at "
+                                 f"H = {widths}, want {want} at H = {h}")
+        res["max_abs_err"] = [
+            against_plain(rec, kernel, args, kwargs, f"{name} launch {i}")[0]
+            for i, (_, args, kwargs) in enumerate(launch_calls)]
+        res["launch"] = launch_calls[0][1:]
     for k, want in jax_means.items():
         res[f"gap_{k}"] = means[k] - want
         if not abs(means[k] - want) <= JAX_GAP[k]:
@@ -784,6 +984,12 @@ def config_phase(name: str, checkpoint: str, jax_means: dict, dev, clock,
         if not means[k] > floor:
             raise AssertionError(f"{name}: {k} {means[k]:.4f} under the "
                                  f"JAX gate's {floor}")
+    gate = DEPTH_GATES.get(name)
+    if gate and not (means["abs_rel"] < gate["abs_rel"]
+                     and means["a1"] > gate["a1"]):
+        raise AssertionError(f"{name}: abs_rel {means['abs_rel']:.4f} "
+                             f"(max {gate['abs_rel']}), a1 "
+                             f"{means['a1']:.4f} (min {gate['a1']})")
     if conf["model"] == "bts_nvs":
         res["frame_ms"] = nvs_frame_ms(calls[-1][0], calls[-1][1], clock,
                                        frames)
@@ -817,16 +1023,20 @@ def config_phases(dev, card: str, clock_fn, overrides=(),
     """Phases 10-13 on `dev`, printing each phase's results: every config
     of CONFIG_RUNS (with `overrides`) through `config_phase`, the NVS
     configs with no decode kernel launched, eval_synthetic_flagship with
-    the shared_z kernel launched; then `fine_value`. Returns (the config
-    records, the fine-pass record)."""
-    configs = []
+    the shared_z kernel launched, the KERNEL_ROWS with theirs held
+    against the plain version; then `fine_value`. Returns (the config
+    records, the fine-pass record, {row of KERNEL_ROWS: the (args,
+    kwargs) of its first launch})."""
+    configs, launches = [], {}
     for phase, name, checkpoint, jax_means in CONFIG_RUNS:
         t = time.perf_counter()
         res = config_phase(name, checkpoint, jax_means, dev, clock_fn(),
                            overrides, frames)
+        if "launch" in res:
+            launches[name] = res.pop("launch")
         configs.append(res)
         launched = res["launches"]
-        if phase in ("10", "11") and any(launched.values()):
+        if name.endswith("_nvs") and any(launched.values()):
             raise AssertionError(f"{name} launched decode kernels: "
                                  f"{launched}")
         if name == "eval_synthetic_flagship" and \
@@ -841,9 +1051,13 @@ def config_phases(dev, card: str, clock_fn, overrides=(),
               + "; per scene "
               + json.dumps([[round(m[k], 6) for k in keys]
                             for m in res["per_scene"]])
-              + f"; decode kernel launches {json.dumps(launched)}; peak "
-              "memory " + ("not measured" if peak is None
-                           else f"{peak / 2**30:.2f} GiB"), flush=True)
+              + f"; decode kernel launches {json.dumps(launched)}"
+              + (f" (max abs deviation from the plain version "
+                 f"{max(res['max_abs_err']):.3e})" if "max_abs_err" in res
+                 else "")
+              + "; peak memory " + ("not measured" if peak is None
+                                    else f"{peak / 2**30:.2f} GiB"),
+              flush=True)
         if "frame_ms" in res:
             fm = res["frame_ms"]
             print(f"[chip_smoke] {name} NVS frame ({card}): median "
@@ -860,7 +1074,7 @@ def config_phases(dev, card: str, clock_fn, overrides=(),
           f"{FINE_MARGIN_MIN}); reuse vs re-query {fine['reuse_gap']:.2e} dB"
           f" (max {REUSE_GAP_MAX})", flush=True)
     log("phase 13 fine pass", "beats flat; reuse equals re-query", t)
-    return configs, fine
+    return configs, fine, launches
 
 
 def write_occupancy_splits(tree: str, frames: int) -> None:
@@ -1640,7 +1854,7 @@ def main() -> None:
     log("phase 9 general path", "gate met, within the self-view bounds", t)
 
     # -- 10-13: configs through the port's task runner ---------------------
-    configs, fine = config_phases(dev, card, cuda_clock)
+    configs, fine, row_launches = config_phases(dev, card, cuda_clock)
 
     # -- 14, 15: KITTI-360 occupancy on the gate drive ---------------------
     from behindthescenes_tpu_torch.datasets.gen_synthetic_kitti_360 import \
@@ -1667,13 +1881,30 @@ def main() -> None:
             " ".join((res["config"], *res["overrides"])),
             resources[kernel]))
     log("phase 15 timing", card, t)
+    t = time.perf_counter()
+    for name, (args, kwargs) in row_launches.items():
+        kernel, rec, h = KERNEL_ROWS[name]
+        res = next(c for c in configs if c["config"] == name)
+        piece = shared_z_bf16_piece(h, args[1].shape[0])
+        found = [v for k, v in ptxas.items() if piece in k]
+        if len(found) != 1:
+            raise AssertionError(f"ptxas report: {len(found)} kernels match "
+                                 f"{piece}")
+        records.append(kernel_record(
+            f"{rec}_h{h}", rec, kernel, args, kwargs,
+            res["launches"][kernel], max(res["max_abs_err"]), name,
+            found[0]))
+    log("phase 12 timing", f"{sorted(row_launches)}'s kernel, {card}", t)
+
+    # -- 17: the fast training profiles ------------------------------------
+    fast = fast_training_phase(dev, card, cuda_clock)
 
     print(json.dumps({"frame_ms": frame_ms, "encode_ms": encode_ms,
                       "serving": serving, "general_path": general["means"],
                       "train_parity": parity, "training": training,
                       "configs": configs, "fine_pass": fine,
                       "occupancy": [res for res, _ in occupancy],
-                      "k360_training": k360_run}),
+                      "k360_training": k360_run, "fast_training": fast}),
           flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)

@@ -18,6 +18,11 @@ from behindthescenes_tpu_torch.weights import flat_from_state_dict, flax_key
 from test_torch_train import (DUMMY, RESNET, _batch, _flat, _jax_init,
                               replay_draws)
 
+# One intra-op thread: pytest-xdist runs several workers on this CPU,
+# and torch's default of a thread per core makes every small op wait
+# on threads that the other workers have swapped out.
+torch.set_num_threads(1)
+
 
 class Pair:
     """A JAX trainer and the port's on one config from JAX's initial

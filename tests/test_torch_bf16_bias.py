@@ -16,6 +16,11 @@ from behindthescenes_tpu.models.mlp import make_mlp as j_make_mlp
 from behindthescenes_tpu_torch.models.encoder import Conv3x3
 from behindthescenes_tpu_torch.models.mlp import make_mlp
 
+# One intra-op thread: pytest-xdist runs several workers on this CPU,
+# and torch's default of a thread per core makes every small op wait
+# on threads that the other workers have swapped out.
+torch.set_num_threads(1)
+
 D_IN = 103
 
 

@@ -4,8 +4,14 @@ harness's rules give, and the torchvision-keyed ResNet-50 it writes. (The
 script itself needs the card; its contract is checked there.)"""
 import os
 
+import torch
 from test_torch_chip_smoke import (CUT_EXTRA, ROOT, _cut, _HostClock,
                                    cs, gate_tree_cut)  # noqa: F401
+
+# One intra-op thread: pytest-xdist runs several workers on this CPU,
+# and torch's default of a thread per core makes every small op wait
+# on threads that the other workers have swapped out.
+torch.set_num_threads(1)
 
 # The cut gate drive at 32x96, 2 items of 8 views a micro-step, 64 rays of 8
 # samples, f32; runs of 6 and 8 micro-steps (accumulate_steps 4 from the
@@ -28,6 +34,9 @@ def test_k360_training_phase_rehearsed(gate_tree_cut, monkeypatch, capsys):
     timed. JAX's validation means are those of the full size, so their
     bound moves out of the way."""
     _cut(monkeypatch)
+    # The second run is a process of its own: its torch takes one thread
+    # too.
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     monkeypatch.setattr(cs, "K360_RUN", K360_CUT_RUN)
     monkeypatch.setattr(cs, "K360_VAL_GAP",
                         dict.fromkeys(cs.K360_VAL_GAP, 1e9))

@@ -11,6 +11,12 @@ import pytest
 from behindthescenes_tpu import config as jconfig
 from behindthescenes_tpu_torch import config as tconfig
 
+import torch
+# One intra-op thread: pytest-xdist runs several workers on this CPU,
+# and torch's default of a thread per core makes every small op wait
+# on threads that the other workers have swapped out.
+torch.set_num_threads(1)
+
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 FILES = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml"))
                + glob.glob(os.path.join(ROOT, "configs", "data", "*.yaml")))

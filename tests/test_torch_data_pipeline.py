@@ -16,6 +16,12 @@ from behindthescenes_tpu_torch.datasets.augmentation import (
 from behindthescenes_tpu_torch.datasets.loader import DataLoader
 from behindthescenes_tpu_torch.datasets.remap import remap_linear
 
+import torch
+# One intra-op thread: pytest-xdist runs several workers on this CPU,
+# and torch's default of a thread per core makes every small op wait
+# on threads that the other workers have swapped out.
+torch.set_num_threads(1)
+
 
 class _Indexed:
     """Items that are their own index."""

@@ -19,6 +19,11 @@ from behindthescenes_tpu_torch.models.bts import BTSNet
 from behindthescenes_tpu_torch.ray_sampler import ImageRaySampler
 from behindthescenes_tpu_torch.weights import state_dict_from_flat
 
+# One intra-op thread: pytest-xdist runs several workers on this CPU,
+# and torch's default of a thread per core makes every small op wait
+# on threads that the other workers have swapped out.
+torch.set_num_threads(1)
+
 TOL = 1e-5
 
 
@@ -321,11 +326,34 @@ def test_draws_of_the_wrong_shape_raise():
 
 
 def test_training_refuses_the_fine_pass():
-    """The renderer serves n_fine > 0; the train step does not yet, and
-    says so instead of dropping the fine branch."""
+    """The train step renders the fine pass (n_fine > 0) instead of
+    dropping its branch: its fine output composites n_coarse + n_fine
+    samples a ray and differs from the coarse one. What it still refuses
+    is `fine_reuse_coarse` with a fine MLP of its own, as the JAX wrapper
+    does (its tests/test_train_modes.py:187). Step-level agreement with
+    JAX: tests/test_torch_train_modes.py."""
+    from behindthescenes_tpu_torch.training.view_select import ViewIds
     from behindthescenes_tpu_torch.training.wrapper import BTSWrapper
+    torch.manual_seed(0)
     net = BTSNet.from_conf(MODEL_CONF)
+    conf = dict(MODEL_CONF, sample_mode="random", ray_batch_size=32,
+                prediction_mode="default")
     wrapper = BTSWrapper(net, tr.RendererConfig(n_coarse=4, n_fine=4),
-                         dict(MODEL_CONF, sample_mode="random"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        wrapper.forward({"imgs": torch.zeros(1, 2, 16, 24, 3)}, None)
+                         conf)
+    eye = torch.eye(4).expand(1, 2, 4, 4).clone()
+    eye[0, 1, 0, 3] = 0.3
+    batch = {"imgs": torch.rand(1, 2, 16, 24, 3) * 2 - 1, "poses": eye,
+             "projs": torch.tensor([[1.0, 0, 0], [0, 1.5, 0], [0, 0, 1]])
+             .expand(1, 2, 3, 3)}
+    ids = ViewIds(ids_encoder=[0], ids_render=[1], ids_loss=[0])
+    gen = torch.Generator().manual_seed(0)
+    data = wrapper.forward(batch, ids, train=True, generator=gen)
+    coarse, fine = data["coarse"][0], data["fine"][0]
+    assert coarse["weights"].shape[-1] == 4
+    assert fine["weights"].shape[-1] == 8
+    assert not torch.equal(coarse["rgb"], fine["rgb"])
+    mlp_fine = dict(MODEL_CONF, mlp_fine=MODEL_CONF["mlp_coarse"])
+    with pytest.raises(ValueError, match="fine_reuse_coarse"):
+        BTSWrapper(BTSNet.from_conf(mlp_fine),
+                   tr.RendererConfig(n_coarse=4, n_fine=4,
+                                     fine_reuse_coarse=True), conf)

@@ -26,6 +26,11 @@ from behindthescenes_tpu_torch.weights import (flat_from_state_dict,
                                                load_params_npz,
                                                state_dict_from_flat)
 
+# One intra-op thread: pytest-xdist runs several workers on this CPU,
+# and torch's default of a thread per core makes every small op wait
+# on threads that the other workers have swapped out.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NPZ = os.path.join(ROOT, "media", "weights", "synthetic_conv_step8400.npz")
 _spec = importlib.util.spec_from_file_location(

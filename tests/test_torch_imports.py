@@ -1,5 +1,6 @@
-"""The port and chip_smoke.py import nothing of JAX, Flax, PyYAML, OpenCV
-or the JAX package: the GPU machine that runs them has none of those.
+"""The port and chip_smoke.py import nothing of JAX, Flax, PyYAML, OpenCV,
+matplotlib or the JAX package: the GPU machine that runs them has none of
+those.
 Every module of behindthescenes_tpu_torch and chip_smoke.py (without
 running its main) is imported in a fresh interpreter where those modules
 are blocked, and the sources are searched for such imports."""
@@ -8,9 +9,16 @@ import re
 import subprocess
 import sys
 
+import torch
+# One intra-op thread: pytest-xdist runs several workers on this CPU,
+# and torch's default of a thread per core makes every small op wait
+# on threads that the other workers have swapped out.
+torch.set_num_threads(1)
+
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PORT = os.path.join(ROOT, "behindthescenes_tpu_torch")
-BLOCKED = ("jax", "jaxlib", "flax", "yaml", "cv2", "behindthescenes_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "yaml", "cv2", "matplotlib",
+           "behindthescenes_tpu")
 
 _PROBE = r"""
 import importlib, importlib.abc, importlib.util, pkgutil, sys
@@ -62,7 +70,7 @@ def _sources():
 
 def test_no_jax_imports_in_the_sources():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|yaml|cv2|"
-                     r"behindthescenes_tpu)(\.|\s|$)", re.M)
+                     r"matplotlib|behindthescenes_tpu)(\.|\s|$)", re.M)
     for path in _sources():
         with open(path) as f:
             text = f.read()
@@ -94,3 +102,13 @@ def test_source_scan_covers_the_kitti360_path():
         "gen_synthetic_kitti_360.py", "preprocess_kitti_360.py")} \
         | {os.path.join("evaluation", f) for f in (
             "lidar_occ.py", "bbox_occ.py")} <= scanned
+
+
+def test_source_scan_covers_the_training_remainder():
+    """The scan and the blocked-import probe reach the image processors,
+    the visualisation grids and the plotting helpers that carry their own
+    colormap in place of matplotlib's."""
+    scanned = {os.path.relpath(p, PORT) for p in _sources()}
+    assert {os.path.join(*f) for f in (
+        ("models", "image_processor.py"), ("training", "visualize.py"),
+        ("utils", "plotting.py"))} <= scanned

@@ -38,6 +38,11 @@ from behindthescenes_tpu_torch.ops.kernels.shared_z import \
 from behindthescenes_tpu_torch.ops.kernels.shared_z import (
     shared_z_tail, shared_z_tail_plain)
 
+# One intra-op thread: pytest-xdist runs several workers on this CPU,
+# and torch's default of a thread per core makes every small op wait
+# on threads that the other workers have swapped out.
+torch.set_num_threads(1)
+
 N_FREQS, FREQ_FACTOR = 6, 1.5
 
 

@@ -37,6 +37,12 @@ from behindthescenes_tpu_torch.datasets.preprocess_kitti_360 import \
 from kitti360_fixture import (FISH_CALIB, add_bboxes_and_semantics,
                               build_kitti360_tree)  # noqa: E402
 
+import torch
+# One intra-op thread: pytest-xdist runs several workers on this CPU,
+# and torch's default of a thread per core makes every small op wait
+# on threads that the other workers have swapped out.
+torch.set_num_threads(1)
+
 # A small drive (tests/test_synthetic_kitti_360.py:32 at about half its
 # resolution), with two test keyframes; the resolution it is loaded and
 # preprocessed at.
@@ -363,5 +369,7 @@ def test_unported_options_are_refused(fixture_tree):
         _assert_items_equal(want[i], got[i])
     assert want[0]["imgs"].shape == (8, 48, 176, 3)
     from behindthescenes_tpu_torch.datasets.factory import make_datasets
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         make_datasets({"type": "KITTI_Raw"})
+    with pytest.raises(NotImplementedError, match="item 7"):
+        make_datasets({"type": "Waymo"})

@@ -45,6 +45,11 @@ from behindthescenes_tpu_torch.models.bts import BTSNet  # noqa: E402
 from behindthescenes_tpu_torch.weights import (load_weights,  # noqa: E402
                                                save_params_npz)
 
+# One intra-op thread: pytest-xdist runs several workers on this CPU,
+# and torch's default of a thread per core makes every small op wait
+# on threads that the other workers have swapped out.
+torch.set_num_threads(1)
+
 DRIVE = dict(n_frames=26, hp=48, wp=176, hf=64, wf=64, seed=3, n_az=360,
              test_keyframes=[2, 5])
 HW = (32, 96)

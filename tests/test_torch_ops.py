@@ -15,6 +15,11 @@ from behindthescenes_tpu_torch import geometry as tgeo
 from behindthescenes_tpu_torch.ops import grid_sample as tgs
 from behindthescenes_tpu_torch.ops.posenc import PositionalEncoding as TPE
 
+# One intra-op thread: pytest-xdist runs several workers on this CPU,
+# and torch's default of a thread per core makes every small op wait
+# on threads that the other workers have swapped out.
+torch.set_num_threads(1)
+
 ATOL = 1e-6
 
 

@@ -25,6 +25,11 @@ from behindthescenes_tpu_torch.training.trainer import BTSTrainer
 from test_harness import _tiny_config
 from test_torch_import import reference_bts_checkpoint
 
+# One intra-op thread: pytest-xdist runs several workers on this CPU,
+# and torch's default of a thread per core makes every small op wait
+# on threads that the other workers have swapped out.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NPZ = os.path.join(ROOT, "media", "weights", "synthetic_conv_step8400.npz")
 
@@ -84,6 +89,37 @@ def test_checkpoints_best_and_resume_match_jax(tmp_path):
         assert val["step"] == jval["step"] == 5
     assert [s[0] for s in got["port"]] == [11, 16]
     assert [s[1] for s in got["port"]] == [[5, 10, 11], [11, 15, 16]]
+
+
+def test_best_k_replaces_best_steps_as_jax(tmp_path, monkeypatch):
+    """Both harnesses fed the same scripted validations: abs_rel 0.5, 0.4,
+    0.3 at the 1st, 2nd and 3rd validation (iterations 5, 10 and, after
+    the resume, 15), so the 2nd and the 3rd each replace the best. Both
+    keep the same best steps (2 kept: 5 and 10, then 10 and 15) and
+    best_value.json carries the same metric, value and step across the
+    resume."""
+    from behindthescenes_tpu.training import harness as j_harness
+    script = (0.5, 0.4, 0.3)
+    seen = {"jax": [], "port": []}
+
+    def scripted(name, step):
+        seen[name].append(step)
+        return {"abs_rel": script[min(len(seen[name]), len(script)) - 1]}
+    monkeypatch.setattr(j_harness, "run_validation",
+                        lambda trainer, state, loader:
+                        scripted("jax", int(state.step)))
+    monkeypatch.setattr(harness, "run_validation",
+                        lambda trainer, loader:
+                        scripted("port", trainer.step))
+    got = _run_both(tmp_path, (11, 16))
+    assert seen["port"] == seen["jax"] == [5, 10, 15]
+    for (jstep, jckpt, jbest, jval), (step, ckpt, best, val) in zip(
+            got["jax"], got["port"]):
+        assert (step, ckpt, best) == (jstep, jckpt, jbest)
+        assert val == jval
+    assert [s[2] for s in got["port"]] == [[5, 10], [10, 15]]
+    assert [(s[3]["step"], s[3]["value"]) for s in got["port"]] == \
+        [(10, 0.4), (15, 0.3)]
 
 
 def test_checkpoint_round_trips(tmp_path):

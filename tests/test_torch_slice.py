@@ -36,6 +36,11 @@ from behindthescenes_tpu_torch.models.mlp import ResnetFC
 from behindthescenes_tpu_torch.renderer import RendererConfig
 from behindthescenes_tpu_torch.weights import state_dict_from_flat
 
+# One intra-op thread: pytest-xdist runs several workers on this CPU,
+# and torch's default of a thread per core makes every small op wait
+# on threads that the other workers have swapped out.
+torch.set_num_threads(1)
+
 ARTIFACT = os.path.join(os.path.dirname(__file__), "..", "media", "weights",
                         "synthetic_conv_step8400.npz")
 # configs/exp_synthetic.yaml model_conf.

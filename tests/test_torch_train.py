@@ -34,6 +34,11 @@ from behindthescenes_tpu_torch.weights import (flat_from_state_dict,
                                                load_params_npz,
                                                state_dict_from_flat)
 
+# One intra-op thread: pytest-xdist runs several workers on this CPU,
+# and torch's default of a thread per core makes every small op wait
+# on threads that the other workers have swapped out.
+torch.set_num_threads(1)
+
 FLAGSHIP = os.path.join(os.path.dirname(__file__), "..", "media", "weights",
                         "flagship_fast_conv.npz")
 LOSS = {"criterion": "l1+ssim", "invalid_policy": "weight_guided",

@@ -21,6 +21,11 @@ from behindthescenes_tpu_torch.weights import (load_params_npz,
                                                state_dict_from_flat,
                                                torch_name)
 
+# One intra-op thread: pytest-xdist runs several workers on this CPU,
+# and torch's default of a thread per core makes every small op wait
+# on threads that the other workers have swapped out.
+torch.set_num_threads(1)
+
 ARTIFACT = os.path.join(os.path.dirname(__file__), "..", "media", "weights",
                         "flagship_fast_conv.npz")
 

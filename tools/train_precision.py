@@ -1,11 +1,14 @@
 """How far the f32 train step of the card and of the host CPU each sit from
 the exact step.
 
-    python3 tools/train_precision.py        # from the repo root, on the card
+    python3 tools/train_precision.py [CONFIG]   # from the repo root, on the card
 
-Runs one step of chip_smoke.py's training setup (the flagship config,
+Runs one step of chip_smoke.py's training setup (the flagship config, or
+the training config CONFIG of configs/ such as the fast profile
+exp_synthetic_flagship_fast2 of phase 17;
 media/weights/flagship_fast_conv.npz, 4 synthetic items at 192x640,
-numpy-seeded draws) three times: in f32 on the card, in f32 on the host
+numpy-seeded draws, with the fine pass's draws where the config has one)
+three times: in f32 on the card, in f32 on the host
 CPU, and in float64 on the card (parameters, inputs and compute), the
 last standing for the exact step. Prints one JSON line per f32 run: the
 loss's relative deviation from the float64 step's, and per parameter
@@ -44,7 +47,8 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    conf = train_cli.config(cs.TRAIN_CONFIG)
+    conf = train_cli.config(sys.argv[1] if len(sys.argv) > 1
+                            else cs.TRAIN_CONFIG)
     batch = cs.train_batch(conf)
     draws = cs.numpy_draws(conf, batch, cs.TRAIN_SEED)
     exact_loss, exact = step(cs, conf, batch, draws, "cuda", torch.float64)
@@ -54,7 +58,7 @@ def main():
         devs = sorted(((abs(norms[k] - v) / v, k) for k, v in exact.items()
                        if v > floor), reverse=True)
         print(json.dumps({
-            "card": card, "f32_on": dev,
+            "card": card, "config": conf.get("name"), "f32_on": dev,
             "loss_rel": abs(loss - exact_loss) / abs(exact_loss),
             "tensors": len(devs),
             "above_1e-4": sum(d > 1e-4 for d, _ in devs),
