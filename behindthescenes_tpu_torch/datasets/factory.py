@@ -1,7 +1,8 @@
 """Dataset factory (counterpart of behindthescenes_tpu/datasets/factory.py:
 12-60): the Synthetic type, over the port's copy of the synthetic scenes,
-and KITTI_360 (`datasets/kitti_360.py`). The other disk datasets wait for
-ROADMAP Queue A item 3 (KITTI raw, RealEstate10K) and item 7 (the rest)."""
+KITTI_Raw (`datasets/kitti_raw.py`), KITTI_360 (`datasets/kitti_360.py`)
+and RealEstate10k (`datasets/realestate10k.py`). The other disk datasets
+(KITTI_Odometry, Waymo, NYU_Depth_V2) wait for ROADMAP Queue A item 7."""
 from __future__ import annotations
 
 from behindthescenes_tpu_torch.datasets import synthetic
@@ -17,11 +18,17 @@ def make_datasets(data_conf: dict):
         from behindthescenes_tpu_torch.datasets.kitti_360 import (
             Kitti360Dataset)
         return Kitti360Dataset.make_train_test(data_conf)
+    if dtype == "KITTI_Raw":
+        from behindthescenes_tpu_torch.datasets.kitti_raw import (
+            KittiRawDataset)
+        return KittiRawDataset.make_train_test(data_conf)
+    if dtype == "RealEstate10k":
+        from behindthescenes_tpu_torch.datasets.realestate10k import (
+            RealEstate10kDataset)
+        return RealEstate10kDataset.make_train_test(data_conf)
     if dtype != "Synthetic":
-        item = 3 if dtype in ("KITTI_Raw", "RealEstate10k") else 7
         raise NotImplementedError(
-            f"dataset type {dtype!r} is not ported: ROADMAP Queue A item "
-            f"{item}")
+            f"dataset type {dtype!r} is not ported: ROADMAP Queue A item 7")
     h, w = data_conf.get("image_size", (48, 64))
     fc = data_conf.get("data_fc", 2)
     length = data_conf.get("length", 64)

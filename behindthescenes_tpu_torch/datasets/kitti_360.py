@@ -31,25 +31,10 @@ import numpy as np
 from behindthescenes_tpu_torch.config import loads as yaml_loads
 from behindthescenes_tpu_torch.datasets.augmentation import \
     sample_color_jitter
+from behindthescenes_tpu_torch.datasets.kitti_raw import parse_calib_file
 from behindthescenes_tpu_torch.datasets.png import (read_png, resize_linear,
                                                     resize_nearest)
 from behindthescenes_tpu_torch.datasets.remap import remap_linear
-
-
-def parse_calib_file(path):
-    """`key: v0 v1 ...` lines -> {key: float32 array}; lines whose values
-    are not numbers are skipped (copy of
-    behindthescenes_tpu/datasets/kitti_raw.py:32-42)."""
-    data = {}
-    with open(path) as f:
-        for line in f.readlines():
-            key, value = line.split(":", 1)
-            try:
-                data[key] = np.array([float(x) for x in value.split()],
-                                     dtype=np.float32)
-            except ValueError:
-                pass
-    return data
 
 
 def euler_xy(angles_deg) -> np.ndarray:

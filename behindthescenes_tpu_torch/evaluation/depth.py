@@ -55,10 +55,11 @@ class DepthEvaluator:
 
     @torch.no_grad()
     def render(self, images, projs, poses, generator=None, z_samp=None,
-               z_jitter=None):
+               z_jitter=None, mark=None):
         """Keyframe z-depth (1, h, w) of a batch (n = 1) on the model's
         device. z_samp (self-view) and z_jitter (general path) replace the
-        generator's draws."""
+        generator's draws. On the self-view path mark(name), where given,
+        is called after "encode" and after "render"."""
         if not self.use_selfview:
             return self.render_general(images, projs, poses, generator,
                                        z_jitter)[:, 0]
@@ -66,10 +67,14 @@ class DepthEvaluator:
         poses_r = geometry.rebase_poses_to_keyframe(poses)
         grid = self.net.encode(images, projs, poses_r, ids_encoder=[0],
                                ids_render=[0])
+        if mark:
+            mark("encode")
         depth, _, _ = render_depth_selfview(
             self.net, grid, h, w, self.cfg, self.z_near, self.z_far,
             as_z_depth=True, deterministic=self.deterministic,
             generator=generator, z_samp=z_samp)
+        if mark:
+            mark("render")
         return depth
 
     @torch.no_grad()

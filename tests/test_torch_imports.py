@@ -1,6 +1,6 @@
 """The port and chip_smoke.py import nothing of JAX, Flax, PyYAML, OpenCV,
-matplotlib or the JAX package: the GPU machine that runs them has none of
-those.
+PIL, matplotlib or the JAX package: the GPU machine that runs them has none
+of those.
 Every module of behindthescenes_tpu_torch and chip_smoke.py (without
 running its main) is imported in a fresh interpreter where those modules
 are blocked, and the sources are searched for such imports."""
@@ -17,7 +17,7 @@ torch.set_num_threads(1)
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PORT = os.path.join(ROOT, "behindthescenes_tpu_torch")
-BLOCKED = ("jax", "jaxlib", "flax", "yaml", "cv2", "matplotlib",
+BLOCKED = ("jax", "jaxlib", "flax", "yaml", "cv2", "PIL", "matplotlib",
            "behindthescenes_tpu")
 
 _PROBE = r"""
@@ -69,7 +69,7 @@ def _sources():
 
 
 def test_no_jax_imports_in_the_sources():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|yaml|cv2|"
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|yaml|cv2|PIL|"
                      r"matplotlib|behindthescenes_tpu)(\.|\s|$)", re.M)
     for path in _sources():
         with open(path) as f:
@@ -112,3 +112,13 @@ def test_source_scan_covers_the_training_remainder():
     assert {os.path.join(*f) for f in (
         ("models", "image_processor.py"), ("training", "visualize.py"),
         ("utils", "plotting.py"))} <= scanned
+
+
+def test_source_scan_covers_the_kitti_raw_and_re10k_path():
+    """The scan and the blocked-import probe reach the JPEG codec, the
+    KITTI raw and RealEstate10K loaders (which replace loaders that read
+    through cv2) and the port's two tree generators."""
+    scanned = {os.path.relpath(p, PORT) for p in _sources()}
+    assert {os.path.join("datasets", f) for f in (
+        "jpeg.py", "kitti_raw.py", "realestate10k.py",
+        "gen_synthetic_kitti_raw.py", "gen_synthetic_re10k.py")} <= scanned

@@ -357,8 +357,8 @@ def test_unported_options_are_refused(fixture_tree):
     ported: with both, on the fixture tree's raw 700x700 fisheye frames,
     every item of the port's loader (stereo, two frames: 8 views, one
     jitter per item from the loader's seed) equals the JAX loader's, value
-    for value (measured with OpenCV 5.0). The loaders of the other
-    datasets still refuse, naming their ROADMAP item."""
+    for value (measured with OpenCV 5.0). The loaders of the datasets
+    still to port refuse, naming their ROADMAP item."""
     kw = dict(data_path=str(fixture_tree / "data"),
               pose_path=str(fixture_tree / "poses"), split_path=None,
               target_image_size=(48, 176), return_stereo=True,
@@ -369,7 +369,6 @@ def test_unported_options_are_refused(fixture_tree):
         _assert_items_equal(want[i], got[i])
     assert want[0]["imgs"].shape == (8, 48, 176, 3)
     from behindthescenes_tpu_torch.datasets.factory import make_datasets
-    with pytest.raises(NotImplementedError, match="item 3"):
-        make_datasets({"type": "KITTI_Raw"})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_datasets({"type": "Waymo"})
+    for dtype in ("KITTI_Odometry", "Waymo", "NYU_Depth_V2"):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            make_datasets({"type": dtype})
