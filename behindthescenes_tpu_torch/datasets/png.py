@@ -3,9 +3,10 @@ image resizes of OpenCV that the KITTI-360 loader uses.
 
 The GPU machine has no OpenCV, so the port reads and writes its images
 here (no JAX counterpart; the JAX package calls cv2):
-- `read_png` reads 8-bit grey and RGB, non-interlaced, with any of the
-  five row filters (OpenCV's writer picks them row by row, Paeth
-  included), as `cv2.imread` gives them with the channels in RGB order;
+- `read_png` reads 8- and 16-bit grey and RGB, non-interlaced, with any
+  of the five row filters (OpenCV's writer picks them row by row, Paeth
+  included), as `cv2.imread(path, cv2.IMREAD_UNCHANGED)` gives them with
+  the channels in RGB order;
 - `write_png` writes the same kinds, every row with filter 0 (none);
 - `resize_linear` is `cv2.resize(..., INTER_LINEAR)` on float32 images:
   half-pixel centres, edge clamp, no antialias when shrinking, the
@@ -84,8 +85,8 @@ def _unfilter(kinds: np.ndarray, rows: np.ndarray, bpp: int) -> np.ndarray:
 
 
 def read_png(path) -> np.ndarray:
-    """An 8-bit grey (h, w) or RGB (h, w, 3) non-interlaced PNG as uint8;
-    any other kind raises ValueError."""
+    """A grey (h, w) or RGB (h, w, 3) non-interlaced PNG as uint8 (8-bit)
+    or uint16 (16-bit); any other kind raises ValueError."""
     with open(path, "rb") as f:
         data = f.read()
     header, idat = None, []
@@ -97,19 +98,22 @@ def read_png(path) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, color, compression, filtering, interlace = header
-    if depth != 8 or color not in _CHANNELS or interlace or compression \
-            or filtering:
+    if depth not in (8, 16) or color not in _CHANNELS or interlace \
+            or compression or filtering:
         raise ValueError(f"{path}: bit depth {depth}, colour type {color}, "
-                         f"interlace {interlace}: only 8-bit grey and RGB, "
-                         "non-interlaced, are read")
-    bpp = _CHANNELS[color]
+                         f"interlace {interlace}: only 8- and 16-bit grey "
+                         "and RGB, non-interlaced, are read")
+    channels = _CHANNELS[color]
+    bpp = channels * depth // 8          # filters work on whole pixels
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (w * bpp + 1):
         raise ValueError(f"{path}: {raw.size} bytes of image data for "
                          f"{h}x{w}x{bpp}")
     rows = raw.reshape(h, w * bpp + 1)
     img = _unfilter(rows[:, 0], rows[:, 1:], bpp)
-    return img.reshape(h, w) if bpp == 1 else img.reshape(h, w, 3)
+    if depth == 16:
+        img = img.view(">u2").astype(np.uint16)
+    return img.reshape(h, w) if channels == 1 else img.reshape(h, w, 3)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -118,18 +122,20 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def write_png(path, img: np.ndarray) -> None:
-    """Write uint8 grey (h, w) or RGB (h, w, 3) as a PNG, every row with
-    filter 0."""
+    """Write uint8 or uint16 grey (h, w) or RGB (h, w, 3) as an 8- or
+    16-bit PNG, every row with filter 0."""
     img = np.asarray(img)
-    if img.dtype != np.uint8 or not (
+    if img.dtype not in (np.uint8, np.uint16) or not (
             img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
-        raise ValueError(f"write_png takes uint8 (h, w) or (h, w, 3), not "
-                         f"{img.dtype} {img.shape}")
+        raise ValueError(f"write_png takes uint8 or uint16 (h, w) or (h, w, "
+                         f"3), not {img.dtype} {img.shape}")
     h, w = img.shape[:2]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)],
+    depth = 8 * img.dtype.itemsize
+    data = img.astype(">u2").view(np.uint8) if depth == 16 else img
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), data.reshape(h, -1)],
                           axis=1)
-    header = struct.pack(">IIBBBBB", w, h, 8, 0 if img.ndim == 2 else 2,
-                         0, 0, 0)
+    header = struct.pack(">IIBBBBB", w, h, depth,
+                         0 if img.ndim == 2 else 2, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(_SIGNATURE + _chunk(b"IHDR", header)
                 + _chunk(b"IDAT", zlib.compress(rows.tobytes(), _LEVEL))

@@ -2,7 +2,8 @@
 behindthescenes_tpu/evaluation/nvs.py:27-129; reference
 models/bts/evaluator_nvs.py): encode frame 0 (optionally at a reduced
 resolution), render every frame from that encoding through the general
-cross-view path, and compute PSNR/SSIM/LPIPS with a 5% border crop on
+cross-view path or, with `model_conf.nvs_sweep`, through the sweep path
+(models/sweep.py), and compute PSNR/SSIM/LPIPS with a 5% border crop on
 every frame but the source.
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from behindthescenes_tpu_torch import geometry
 from behindthescenes_tpu_torch.evaluation import metrics as M
 from behindthescenes_tpu_torch.models.bts import BTSNet
+from behindthescenes_tpu_torch.models.sweep import render_frame_sweep
 from behindthescenes_tpu_torch.platform import exact_f32
 from behindthescenes_tpu_torch.ray_sampler import ImageRaySampler
 from behindthescenes_tpu_torch.renderer import render_rays_chunked
@@ -65,17 +67,41 @@ def render_general(net: BTSNet, images, projs, poses, cfg, z_near: float,
     return render_dict
 
 
+def render_sweep(net: BTSNet, images, projs, poses, cfg, sweep_conf: dict,
+                 enc_images=None,
+                 mark: Optional[Callable[[str], None]] = None):
+    """Every view of a batch (n = 1) rendered by `render_frame_sweep`
+    (with the keywords sweep_conf) from view 0's encoding: rgb (v, h, w,
+    3). enc_images replaces the encoder's input; mark(name) is called
+    after "encode" and "render". Draws nothing."""
+    _, v, h, w, _ = images.shape
+    poses_r = geometry.rebase_poses_to_keyframe(poses)
+    grid = net.encode(images if enc_images is None else enc_images, projs,
+                      poses_r, ids_encoder=[0], ids_render=[0],
+                      images_alt=images[:, :1] * 0.5 + 0.5)
+    if mark:
+        mark("encode")
+    rgb = torch.stack([render_frame_sweep(
+        net, grid, poses_r[0, vi], projs[0, vi], (h, w), cfg,
+        **sweep_conf)["fine"]["rgb"][0] for vi in range(v)])
+    if mark:
+        mark("render")
+    return rgb.reshape(v, h, w, 3)
+
+
 class NVSEvaluator:
     """Renders every frame of a batch from frame 0's encoding, with
     stratified coarse jitter and the config's fine pass, the draws taken
-    from the generator given to `evaluate` unless passed in."""
+    from the generator given to `evaluate` unless passed in; or, with
+    `nvs_sweep` in the config (true for the defaults, or a dict of
+    render_frame_sweep's keywords), through the sweep path, which draws
+    nothing."""
 
     def __init__(self, net: BTSNet, renderer_cfg, config: dict,
                  eval_resolution=None, lpips_weights: Optional[str] = None):
-        if config.get("nvs_sweep"):
-            raise NotImplementedError(
-                "model_conf.nvs_sweep (sweep-mode serving, models/sweep.py) "
-                "is not ported: ROADMAP Queue A item 4")
+        sweep_conf = config.get("nvs_sweep")
+        self.sweep_conf = ({} if sweep_conf is True else dict(sweep_conf)) \
+            if sweep_conf else None
         exact_f32()
         self.net = net
         self.cfg = renderer_cfg
@@ -91,7 +117,7 @@ class NVSEvaluator:
                fine_draws=None, mark=None):
         """rgb (v, h, w, 3) of every frame of a batch (n = 1), averaged
         over the render views, on the model's device (`render_general`'s
-        arguments)."""
+        arguments; the sweep path takes none of the draws)."""
         _, _, h, w, _ = images.shape
         enc_images = None
         if self.eval_resolution is not None:
@@ -99,6 +125,9 @@ class NVSEvaluator:
             ys = (torch.arange(er_h, device=images.device) * (h / er_h)).long()
             xs = (torch.arange(er_w, device=images.device) * (w / er_w)).long()
             enc_images = images[:, :, ys][:, :, :, xs]
+        if self.sweep_conf is not None:
+            return render_sweep(self.net, images, projs, poses, self.cfg,
+                                self.sweep_conf, enc_images, mark)
         rd = render_general(self.net, images, projs, poses, self.cfg,
                             self.z_near, self.z_far, generator, z_jitter,
                             fine_draws, images_alt=images[:, :1] * 0.5 + 0.5,

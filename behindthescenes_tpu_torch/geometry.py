@@ -1,5 +1,5 @@
-"""Camera geometry (counterpart of behindthescenes_tpu/geometry.py:19-141,
-208-251), exact in float32.
+"""Camera geometry (counterpart of behindthescenes_tpu/geometry.py),
+exact in float32.
 
 Conventions as in the JAX package: 3x3 NDC intrinsics, camera-to-world
 4x4 poses, pixel lattice linspace(-1, 1) inclusive, a ray is the 8-vector
@@ -7,6 +7,7 @@ Conventions as in the JAX package: 3x3 NDC intrinsics, camera-to-world
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -82,6 +83,70 @@ def invert_pose(poses: torch.Tensor) -> torch.Tensor:
 def rebase_poses_to_keyframe(poses: torch.Tensor) -> torch.Tensor:
     """(n, v, 4, 4) camera-to-world -> relative to view 0 (identity)."""
     return invert_pose(poses[:, :1]) @ poses
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternions (w, x, y, z) (..., 4) -> rotation matrices (..., 3,
+    3) (behindthescenes_tpu/geometry.py:143-154; reference
+    util.py:481-510)."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    rot = torch.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+    ], -1)
+    return rot.reshape(q.shape[:-1] + (3, 3))
+
+
+def rot_to_quat(rot: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> unit quaternions (w, x, y, z) (...,
+    4), branch-free (behindthescenes_tpu/geometry.py:157-173)."""
+    m00, m01, m02 = rot[..., 0, 0], rot[..., 0, 1], rot[..., 0, 2]
+    m10, m11, m12 = rot[..., 1, 0], rot[..., 1, 1], rot[..., 1, 2]
+    m20, m21, m22 = rot[..., 2, 0], rot[..., 2, 1], rot[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def half_sqrt(v):
+        return torch.sqrt(torch.clamp_min(v, 0.0)) / 2
+
+    def sign(d):
+        return torch.sign(torch.where(d == 0, torch.ones_like(d), d))
+    w = half_sqrt(1 + tr)
+    x = half_sqrt(1 + m00 - m11 - m22) * sign(m21 - m12)
+    y = half_sqrt(1 - m00 + m11 - m22) * sign(m02 - m20)
+    z = half_sqrt(1 - m00 - m11 + m22) * sign(m10 - m01)
+    return torch.stack([w, x, y, z], -1)
+
+
+def look_at(origin, target, world_up=(0.0, 1.0, 0.0)) -> np.ndarray:
+    """Camera-to-world (4, 4) float32 numpy matrix looking from origin at
+    target (behindthescenes_tpu/geometry.py:176-193; reference
+    util.py:180-196)."""
+    origin = np.asarray(origin, dtype=np.float32)
+    target = np.asarray(target, dtype=np.float32)
+    world_up = np.asarray(world_up, dtype=np.float32)
+    back = origin - target
+    back = back / np.linalg.norm(back)
+    right = np.cross(world_up, back)
+    right = right / np.linalg.norm(right)
+    up = np.cross(back, right)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, 0], c2w[:3, 1], c2w[:3, 2] = right, up, back
+    c2w[:3, 3] = origin
+    return c2w
+
+
+def coord_from_blender() -> np.ndarray:
+    """Blender -> standard coordinates (reference util.py:152-163)."""
+    return np.array([[1, 0, 0, 0], [0, 0, 1, 0], [0, -1, 0, 0],
+                     [0, 0, 0, 1]], dtype=np.float32)
+
+
+def coord_to_blender() -> np.ndarray:
+    """Standard -> Blender coordinates (reference util.py:166-177)."""
+    return np.array([[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0],
+                     [0, 0, 0, 1]], dtype=np.float32)
 
 
 def project_points(xyz: torch.Tensor, poses_w2c: torch.Tensor,

@@ -1,5 +1,7 @@
-"""Full-frame self-view depth rendering (counterpart of
-behindthescenes_tpu/inference.py:22-79)."""
+"""Inference helpers (counterpart of behindthescenes_tpu/inference.py;
+reference scripts/inference_setup.py:100-229): full-frame self-view
+depth, novel views through the general path, and the top-down (BEV)
+density profile."""
 from __future__ import annotations
 
 import torch
@@ -7,6 +9,7 @@ import torch
 from behindthescenes_tpu_torch import geometry
 from behindthescenes_tpu_torch import renderer as renderer_lib
 from behindthescenes_tpu_torch.models.bts import BTSNet, FeatureGrid
+from behindthescenes_tpu_torch.ray_sampler import ImageRaySampler
 
 
 def render_depth_selfview(net: BTSNet, grid: FeatureGrid, height: int,
@@ -66,3 +69,60 @@ def render_depth_selfview(net: BTSNet, grid: FeatureGrid, height: int,
     if as_z_depth:
         depth = geometry.distance_to_z(depth[None], grid.f_ks[:, :1])[0]
     return depth, weights[None], z_samp
+
+
+def render_poses(net: BTSNet, grid: FeatureGrid, poses, projs, height: int,
+                 width: int, cfg: renderer_lib.RendererConfig, z_near: float,
+                 z_far: float, ray_chunk: int = 16384,
+                 generator: torch.Generator | None = None,
+                 z_jitter: torch.Tensor | None = None,
+                 fine_draws: renderer_lib.FineDraws | None = None) -> dict:
+    """Novel views through the general path in chunks of `ray_chunk` rays
+    (behindthescenes_tpu/inference.py:82-109; reference
+    inference_setup.py:182-198), the coarse jitter and fine draws from
+    `generator` unless passed in (z_jitter (1, v*h*w, n_coarse)).
+
+    poses (v, 4, 4) c2w; projs (v, 3, 3). Returns rgb (v, h, w, 3) (the
+    render views averaged), depth (v, h, w) and invalid (v, h, w) of the
+    coarse pass."""
+    sampler = ImageRaySampler(z_near, z_far, height=height, width=width)
+    rays, _ = sampler.sample(None, poses[None], projs[None])
+
+    def query_fn(xyz, coarse):
+        return net.query(grid, xyz, coarse=coarse)
+
+    out = renderer_lib.render_rays_chunked(
+        query_fn, rays, cfg, ray_chunk=ray_chunk, generator=generator,
+        z_jitter=z_jitter, fine_draws=fine_draws)
+    render_dict = sampler.reconstruct(
+        {"coarse": out["coarse"],
+         "fine": out.get("fine", dict(out["coarse"]))})
+    c = render_dict["coarse"]
+    v = poses.shape[0]
+    return {"rgb": c["rgb"].reshape(v, height, width, -1, 3).mean(-2),
+            "depth": c["depth"].reshape(v, height, width),
+            "invalid": c["invalid"].reshape(v, height, width, -1).mean(-1)}
+
+
+def render_profile(net: BTSNet, grid: FeatureGrid, x_range=(-9.0, 9.0),
+                   y_val: float = 0.0, z_range=(21.0, 3.0), ppm: float = 10.0,
+                   sigma_cutoff: float = 8.0):
+    """Top-down (BEV) density profile (behindthescenes_tpu/inference.py:
+    112-141; reference scripts/inference_setup.py:201-229): the field's
+    density on an x/z grid at height y_val, accumulated along z from the
+    far end, faded out where the accumulation passes the cutoff.
+    Returns (profile (zn, xn) in [0, 1], sigma (zn, xn))."""
+    x0, x1 = x_range
+    z0, z1 = z_range
+    xn = int(abs(x1 - x0) * ppm)
+    zn = int(abs(z0 - z1) * ppm)
+    dev = grid.f_ks.device
+    xs = torch.linspace(x0, x1, xn, device=dev)
+    zs = torch.linspace(z0, z1, zn, device=dev)
+    zz, xx = torch.meshgrid(zs, xs, indexing="ij")
+    pts = torch.stack([xx, torch.full_like(xx, y_val), zz], -1)
+    _, _, sigma = net.query(grid, pts.reshape(1, -1, 3), only_density=True)
+    sigma = sigma.reshape(zn, xn)
+    acc = torch.cumsum(sigma.flip(0), 0).flip(0)
+    profile = torch.clamp(sigma, 0.0, 1.0) * (acc < sigma_cutoff)
+    return profile, sigma

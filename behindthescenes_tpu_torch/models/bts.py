@@ -26,8 +26,8 @@ from behindthescenes_tpu_torch import geometry
 from behindthescenes_tpu_torch.models.encoder import make_backbone
 from behindthescenes_tpu_torch.models.mlp import ResnetFC, make_mlp
 from behindthescenes_tpu_torch.ops.grid_sample import (
-    grid_sample_2d, grid_sample_2d_packed, grid_sample_2d_xpair,
-    resample_uniform_lattice)
+    grid_sample_2d, grid_sample_2d_packed, grid_sample_2d_tiles,
+    grid_sample_2d_xpair, resample_uniform_lattice)
 from behindthescenes_tpu_torch.ops.kernels import selfview
 from behindthescenes_tpu_torch.ops.kernels.selfview import softplus
 from behindthescenes_tpu_torch.ops.posenc import PositionalEncoding
@@ -173,7 +173,8 @@ class BTSNet(nn.Module):
                  code_mode: str = "z", sample_color: bool = True,
                  compute_dtype=torch.float32, empty_empty: bool = False,
                  color_interpolation: str = "bilinear",
-                 return_sample_depth: bool = False):
+                 return_sample_depth: bool = False,
+                 tile_region: Optional[Tuple[int, int]] = None):
         super().__init__()
         if code_mode not in ("z", "distance"):
             raise NotImplementedError(code_mode)
@@ -184,6 +185,9 @@ class BTSNet(nn.Module):
         self.empty_empty = empty_empty
         self.color_interpolation = color_interpolation
         self.return_sample_depth = return_sample_depth
+        # (rh, rw) of the tile fetch, or None (see sample_features).
+        self.tile_region = None if tile_region is None \
+            else tuple(int(r) for r in tile_region)
         self.compute_dtype = compute_dtype
         self.learn_empty = learn_empty
         self.encoder = make_backbone(dict(encoder_conf), compute_dtype)
@@ -206,10 +210,6 @@ class BTSNet(nn.Module):
 
     @classmethod
     def from_conf(cls, conf: dict, compute_dtype=torch.float32) -> "BTSNet":
-        if conf.get("tile_fetch_region"):
-            raise NotImplementedError(
-                "tile_fetch_region (the tile fetch) is not ported: ROADMAP "
-                "Queue A item 4")
         return cls(z_near=conf["z_near"], z_far=conf["z_far"],
                    encoder_conf=dict(conf["encoder"]),
                    code_conf=dict(conf.get("code", {})),
@@ -225,7 +225,8 @@ class BTSNet(nn.Module):
                    color_interpolation=conf.get("color_interpolation",
                                                 "bilinear"),
                    return_sample_depth=conf.get("return_sample_depth",
-                                                False))
+                                                False),
+                   tile_region=conf.get("tile_fetch_region") or None)
 
     # ------------------------------------------------------------ encode
     def encode(self, images, ks, poses_c2w, ids_encoder=None,
@@ -287,20 +288,32 @@ class BTSNet(nn.Module):
             else self.mlp_fine
 
     def sample_features(self, grid: FeatureGrid, xyz, scale: int = 0,
-                        use_single_featuremap: bool = True):
+                        use_single_featuremap: bool = True,
+                        n_tiles: Optional[int] = None):
         """Pixel-aligned features and positional code of world points xyz
         (n, p, 3) (behindthescenes_tpu/models/bts.py:275-358). Sampling
         follows the JAX package's dtype: f32 maps bilinearly in f32; bf16
         maps with C > 32 through the x-pair lerp in bf16, narrower ones
-        through the 4-corner lerp with f32 weights. Returns (features (n,
-        [nv,] p, c + d_code), invalid (n, [nv,] p, 1) bool)."""
+        through the 4-corner lerp with f32 weights. With `n_tiles` and a
+        tile region, the points are n_tiles tiles of p / n_tiles points
+        each (patch-mode training: one patch's samples project into a
+        compact quad), fetched by `grid_sample_2d_tiles` from the map in
+        the compute dtype instead. Returns (features (n, [nv,] p, c +
+        d_code), invalid (n, [nv,] p, 1) bool)."""
         feature_map = grid.features[scale]
-        c = feature_map.shape[-1]
+        n, nv, fh, fw, c = feature_map.shape
         xy, z, distance, invalid = geometry.project_points(
             xyz, grid.f_poses_w2c, grid.f_ks, eps=EPS)
         coord = self.code_coord(z if self.code_mode == "z" else distance)
         xyz_code = self.code_xyz(torch.cat([xy, coord], -1))
-        if feature_map.dtype not in (torch.bfloat16, torch.float16):
+        if n_tiles is not None and self.tile_region is not None:
+            p_total = xy.shape[2]
+            tiles = xy.reshape(n * nv, n_tiles, p_total // n_tiles, 2)
+            maps = feature_map.reshape(n * nv, fh, fw, c)
+            sampled = torch.stack([
+                grid_sample_2d_tiles(maps[i], tiles[i], self.tile_region)
+                for i in range(n * nv)]).reshape(n, nv, p_total, c)
+        elif feature_map.dtype not in (torch.bfloat16, torch.float16):
             sampled = grid_sample_2d(feature_map, xy, align_corners=False,
                                      padding_mode="border")
         elif c > 32:
@@ -343,13 +356,16 @@ class BTSNet(nn.Module):
         return colors, invalid
 
     def query(self, grid: FeatureGrid, xyz, coarse: bool = True,
-              only_density: bool = False, scale: int = 0):
+              only_density: bool = False, scale: int = 0,
+              n_tiles: Optional[int] = None):
         """The field at world points xyz (n, p, 3)
-        (behindthescenes_tpu/models/bts.py:388-441). Returns rgb (n, p,
-        nv*3), invalid (n, p, nv) float and sigma (n, p, 1)."""
+        (behindthescenes_tpu/models/bts.py:388-441); n_tiles: see
+        sample_features. Returns rgb (n, p, nv*3), invalid (n, p, nv)
+        float and sigma (n, p, 1)."""
         n, n_pts, _ = xyz.shape
         feats, invalid_features = self.sample_features(
-            grid, xyz, scale=scale, use_single_featuremap=not only_density)
+            grid, xyz, scale=scale, use_single_featuremap=not only_density,
+            n_tiles=n_tiles)
         if only_density and feats.ndim == 4:
             if feats.shape[1] != 1:
                 raise ValueError("only_density requires a single encoder "

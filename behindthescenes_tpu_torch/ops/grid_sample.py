@@ -1,5 +1,5 @@
 """Grid sampling with torch `F.grid_sample` semantics, channel-last
-(counterpart of behindthescenes_tpu/ops/grid_sample.py:17-222, 283-332).
+(counterpart of behindthescenes_tpu/ops/grid_sample.py:17-332).
 
 - `grid_sample_2d`: bilinear or nearest, border or zeros padding, at
   arbitrary points, with the JAX package's formula.
@@ -9,6 +9,9 @@
   where they round. The packing itself is a layout for the TPU's gather
   rows; here the corners are gathered from the unpacked map, clamped at
   the edge as the packing clamps them.
+- `grid_sample_2d_tiles` and `tile_region_fit`: bilinear sampling of
+  tile-grouped points from one dense region per tile (patch-mode
+  training's tile fetch).
 - `resample_uniform_lattice`: bilinear, border padding, on the
   linspace(-1, 1) lattice, factored into two small matmuls because the
   lattice is fixed.
@@ -129,6 +132,78 @@ def grid_sample_2d_packed(image: torch.Tensor, coords: torch.Tensor, *,
     W, C), coords (..., P, 2) -> (..., P, C)."""
     return _bilinear_border(image, coords, align_corners,
                             torch.promote_types(image.dtype, torch.float32))
+
+
+def grid_sample_2d_tiles(image: torch.Tensor, coords: torch.Tensor,
+                         region_hw) -> torch.Tensor:
+    """Bilinear sample of tile-grouped points, each tile from one dense
+    (rh, rw) region (behindthescenes_tpu/ops/grid_sample.py:224-268).
+
+    Per tile, the region is anchored at the tile's clipped coordinate
+    minimum and gathered by index; the points are interpolated from it
+    with separable hat-function products, val[p] = sum_y hy[p, y] sum_x
+    hx[p, x] R[y, x, :], with the hat weights cast to the image's dtype as
+    the JAX package casts them. This equals grid_sample_2d(...,
+    align_corners=False, padding_mode="border") for points whose clipped
+    coordinates fall inside their tile's region; points outside read zero
+    (every hat weight vanishes). `tile_region_fit` says which tiles fit.
+    The gradient with respect to the image is autograd's (the region
+    gather's backward accumulates, with atomics on the card).
+
+    image (H, W, C); coords (T, P, 2) -> (T, P, C) in image's dtype."""
+    h, w, _ = image.shape
+    rh, rw = region_hw
+    if rh > h or rw > w:
+        raise ValueError(f"tile region {rh}x{rw} exceeds the {h}x{w} map")
+    px, py, x0, y0 = _tile_anchor(coords, (h, w), region_hw)
+    ry = torch.arange(rh, dtype=px.dtype, device=px.device)
+    rx = torch.arange(rw, dtype=px.dtype, device=px.device)
+    hy = torch.relu(1.0 - ((py - y0[:, None].to(py.dtype))[..., None]
+                           - ry).abs())                         # (T, P, rh)
+    hx = torch.relu(1.0 - ((px - x0[:, None].to(px.dtype))[..., None]
+                           - rx).abs())                         # (T, P, rw)
+    rows = y0[:, None] + torch.arange(rh, device=image.device)  # (T, rh)
+    cols = x0[:, None] + torch.arange(rw, device=image.device)  # (T, rw)
+    region = image[rows[:, :, None], cols[:, None, :]]      # (T, rh, rw, C)
+    inner = torch.einsum("tpr,tyrc->tpyc", hx.to(image.dtype), region)
+    return torch.einsum("tpy,tpyc->tpc", hy.to(image.dtype), inner)
+
+
+def _tile_anchor(coords, image_hw, region_hw):
+    """Clipped source coordinates px, py (T, P) and each tile's region
+    origin x0, y0 (T,): the minimum truncated (as astype(int32); the
+    minima are >= 0), kept inside the map."""
+    h, w = image_hw
+    rh, rw = region_hw
+    px = torch.clamp(_unnormalize(coords[..., 0], w, False), 0.0, w - 1)
+    py = torch.clamp(_unnormalize(coords[..., 1], h, False), 0.0, h - 1)
+    x0 = torch.clamp(px.amin(1).to(torch.int64), 0, max(w - rw, 0))
+    y0 = torch.clamp(py.amin(1).to(torch.int64), 0, max(h - rh, 0))
+    return px, py, x0, y0
+
+
+def tile_points_inside(coords: torch.Tensor, image_hw, region_hw):
+    """Per point (T, P) bool: do both texels of its bilinear footprint lie
+    in its tile's region, where grid_sample_2d_tiles equals
+    grid_sample_2d? `tile_region_fit` can pass a tile whose span is
+    within a texel of the region's while its region, anchored at the
+    truncated minimum, ends before its last point's second texel."""
+    rh, rw = region_hw
+    px, py, x0, y0 = _tile_anchor(coords, image_hw, region_hw)
+    return (px - x0[:, None] <= rw - 1) & (py - y0[:, None] <= rh - 1)
+
+
+def tile_region_fit(coords: torch.Tensor, image_hw, region_hw):
+    """Per tile: does every clipped point fall inside a (rh, rw) region
+    anchored at the tile's minimum (behindthescenes_tpu/ops/
+    grid_sample.py:271-280)? coords (T, P, 2) -> (T,) bool."""
+    h, w = image_hw
+    rh, rw = region_hw
+    px = torch.clamp(_unnormalize(coords[..., 0], w, False), 0.0, w - 1)
+    py = torch.clamp(_unnormalize(coords[..., 1], h, False), 0.0, h - 1)
+    dx = px.amax(1) - px.amin(1)
+    dy = py.amax(1) - py.amin(1)
+    return (dy <= rh - 1) & (dx <= rw - 1)
 
 
 def _lattice_matrix(out_size: int, in_size: int,

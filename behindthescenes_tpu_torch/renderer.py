@@ -348,15 +348,32 @@ def render_rays_chunked(query_fn: Callable, rays, cfg: RendererConfig,
                         generator: torch.Generator | None = None,
                         z_jitter: torch.Tensor | None = None,
                         fine_draws: FineDraws | None = None,
-                        **want) -> dict:
+                        pad_last: bool = False, **want) -> dict:
     """Full-frame rendering as a loop over chunks of `ray_chunk` rays
     (the JAX package's `lax.map` over chunks, renderer.py:363-442), which
     bounds the memory of the per-sample tensors. remat_body re-runs each
     chunk's query in the backward pass instead of keeping its activations
     (torch.utils.checkpoint). z_jitter (n, B, n_coarse) and fine_draws are
-    cut along with the rays. rays (n, B, 8); returns what render_rays
+    cut along with the rays. pad_last fills the last chunk to ray_chunk
+    rays as the JAX package pads it (zero origin and direction, the last
+    ray's bounds), for queries whose result depends on the chunk's every
+    point (the tile fetch): each padded ray's samples all lie at the
+    origin, whatever its draws. rays (n, B, 8); returns what render_rays
     returns."""
     b = rays.shape[1]
+    pad = (-b) % ray_chunk if pad_last and b > ray_chunk else 0
+    if pad:
+        fill = torch.zeros_like(rays[:, :pad])
+        fill[..., 6:8] = rays[:, -1:, 6:8]
+        rays = torch.cat([rays, fill], 1)
+
+        def padded(t):
+            return None if t is None else torch.cat(
+                [t, torch.zeros_like(t[:, :pad])], 1)
+        z_jitter = padded(z_jitter)
+        if fine_draws is not None:
+            fine_draws = FineDraws(*(padded(t) for t in dataclasses.astuple(
+                fine_draws)))
 
     def body(chunk_rays, chunk_jitter, chunk_fine):
         return render_rays(query_fn, chunk_rays, cfg, generator,
@@ -374,7 +391,7 @@ def render_rays_chunked(query_fn: Callable, rays, cfg: RendererConfig,
             outs.append(body(*args))
     if len(outs) == 1:
         return outs[0]
-    return {branch: {key: torch.cat([o[branch][key] for o in outs], 1)
+    return {branch: {key: torch.cat([o[branch][key] for o in outs], 1)[:, :b]
                      for key in outs[0][branch]} for branch in outs[0]}
 
 

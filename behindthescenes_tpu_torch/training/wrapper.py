@@ -86,6 +86,13 @@ class BTSWrapper:
             channels=self.train_image_processor.channels
             + int(self.use_automasking))
         self.val_sampler = ImageRaySampler(self.z_near, self.z_far)
+        # The tile fetch (model_conf.tile_fetch_region): only patch-mode
+        # training rays come in tiles (one patch's samples project into a
+        # compact quad); validation renders whole frames through the
+        # gathers.
+        self.query_tiles = None
+        if self.sample_mode == "patch" and net.tile_region is not None:
+            self.query_tiles = self.train_sampler.patch_count
 
     def select_views(self, rng: np.random.Generator, v: int,
                      training: bool) -> ViewIds:
@@ -160,15 +167,19 @@ class BTSWrapper:
                 cfg, n_fine=0, n_fine_depth=0)
 
             def query_fn(xyz, coarse, _scale=scale):
-                return net.query(grid, xyz, coarse=coarse, scale=_scale)
+                return net.query(grid, xyz, coarse=coarse, scale=_scale,
+                                 n_tiles=self.query_tiles if train else None)
             kw = dict(z_jitter=z_jitter, want_weights=True, want_alphas=True,
                       fine_draws=fine_draws if scale_cfg.using_fine
                       else None)
             if train and self.remat_render:
+                # Each chunk's query splits its points into query_tiles
+                # tiles, as the JAX package's does, padded chunks too.
                 render_dict = renderer_lib.render_rays_chunked(
                     query_fn, all_rays, scale_cfg,
                     ray_chunk=self.train_ray_chunk, remat_body=True,
-                    want_rgb_samps=True, **kw)
+                    want_rgb_samps=True,
+                    pad_last=self.query_tiles is not None, **kw)
             elif not train:
                 # A 192x640 frame's per-sample tensors take about 17.5 GB
                 # at once; render it in chunks, without rgb_samps.

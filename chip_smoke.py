@@ -101,6 +101,25 @@ to floors at about 90% of them; each training run to finite losses and
 no decode kernel, its micro-step split beside the loader's wait and the
 loader's item with its JPEG share.
 
+Phases 21-23 run the JAX package's remaining serving and media paths:
+phase 21 serves NVS in sweep mode (models/sweep.py: the shared ladder,
+features fetched on a warp lattice) through `-cn
+eval_synthetic_flagship_nvs model_conf.nvs_sweep=true renderer.n_fine=0
+renderer.n_coarse=64` and the RE10K shape, each held to the JAX
+package's sweep means on the CPU (tools/sweep_reference.py), the
+flagship frame timed at warp 0.5, warp 0.25 and exact beside phase 10's
+general path, and the exact sweep held to the general path on its
+ladder in f32. Phase 22 trains the flagship with the tile fetch
+(model_conf.tile_fetch_region=[16, 64]) and without it on one batch:
+the share of tiles that fit, each fetched point of a fitting tile
+against grid_sample_2d, and both paths' steps timed in bf16 and f32.
+Phase 23 runs the image demos (`python -m
+behindthescenes_tpu_torch.scripts.gen_img_custom` on
+media/example/0000.png with the KITTI raw model, and gen_imgs), whose
+depth launches jitter_density (held against its plain version and
+timed as record jitter_density_demo), and holds the BEV profile, sigma
+and depth to the JAX demo's (media/reference/).
+
 Prints one progress line per phase (flushed, with the phase's seconds),
 then a JSON line of frame times, metrics and training times, one JSON line
 with a record per kernel, the card's name and power limit, and as the
@@ -395,6 +414,59 @@ DISK_TRAIN_RUNS = (
     ("19", "exp_kitti_raw", K360_WEIGHTS, 8, 2),
     ("20", "exp_re10k", RE10K_WEIGHTS, 4, 1),
 )
+
+# Phase 21: sweep-mode NVS serving (models/sweep.py) through the task
+# runner: (config, checkpoint, overrides, the JAX package's CPU means for
+# the same command). JAX's evaluator reads `model_conf.nvs_sweep=true` as
+# an empty dict and renders its general path then, so its means come from
+# the sweep's defaults named (`model_conf.nvs_sweep.warp_scale=0.5`):
+# `JAX_PLATFORMS=cpu python3 tools/sweep_reference.py --part nvs`. The
+# sweep draws nothing; only rounding separates the two sides.
+SWEEP_RUNS = (
+    ("eval_synthetic_flagship_nvs", WEIGHTS,
+     ("model_conf.nvs_sweep=true", "renderer.n_fine=0",
+      "renderer.n_coarse=64"),
+     {"psnr": 22.024194808526797, "ssim": 0.8554890709152171}),
+    ("eval_synthetic_re10k_nvs", RE10K_WEIGHTS,
+     ("model_conf.nvs_sweep=true", "renderer.n_fine=0"),
+     {"psnr": 34.92799132802529, "ssim": 0.96789160887886}),
+)
+# The sweep's frame profiles timed on the flagship: the default (warp
+# 0.5), warp 0.25, and the exact frame (every sample fetched, every
+# sample's colour).
+SWEEP_PROFILES = {"warp 0.5": {},
+                  "warp 0.25": {"warp_scale": 0.25},
+                  "exact": {"warp_scale": None, "color_mode": "exact"}}
+# The exact sweep against the port's general path on the same shared
+# ladder, f32 (tests/test_sweep.py:80-88).
+SWEEP_EXACT_TOL = {"rgb": 2e-5, "depth": 1e-4, "weights": 2e-5}
+
+# Phase 22: the tile fetch in patch-mode training (TRAIN_CONFIG with
+# model_conf.tile_fetch_region) against the gathers on the same batch and
+# draws: each fetched point of a tile that fits its region against
+# grid_sample_2d at f32, and, where every tile fits, the f32 step's loss
+# and gradient norms within phase 7's bounds.
+TILE_REGION = (16, 64)
+TILE_POINT_ATOL = 1e-5
+
+# Phase 23: the image demos through the port. gen_img_custom on the
+# example image with the KITTI raw model (k360_synth_conv.npz, 192x640, 64
+# samples, bf16: its depth is one jitter_density launch of 122,880 rays),
+# held to the JAX demo's grids on the CPU (`JAX_PLATFORMS=cpu python3
+# tools/sweep_reference.py --part demo` writes DEMO_REFERENCE): the
+# profile's cells within DEMO_PROFILE_ATOL in at least DEMO_CELLS_EQUAL
+# of them, sigma's relative error over the grid (2-norm) within
+# DEMO_SIGMA_RTOL, and, the two sides drawing different jitter, the
+# depth's median relative difference within DEMO_DEPTH_MEDIAN_REL.
+# gen_imgs on exp_synthetic's test items with synthetic_conv_step8400.npz
+# (jitter_density at H = 32).
+DEMO_IMAGE = "media/example/0000.png"
+DEMO_REFERENCE = "media/reference/gen_img_custom_kitti_raw.npz"
+DEMO_CELLS_EQUAL, DEMO_PROFILE_ATOL = 0.99, 1e-2
+DEMO_SIGMA_RTOL = 1e-2
+DEMO_DEPTH_MEDIAN_REL = 0.02
+DEMO_IMGS_INDICES = (0, 1)
+DEMO_TIMED = 10
 
 _T0 = time.perf_counter()
 
@@ -2003,6 +2075,382 @@ def disk_phases(dev, card: str, clock_fn, tree_args=None,
     return out, launch
 
 
+@contextlib.contextmanager
+def counted_calls(owner, attr: str):
+    """owner.attr wrapped so that each call appends its arguments to the
+    yielded list."""
+    calls, fn = [], getattr(owner, attr)
+
+    def counted(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+    setattr(owner, attr, counted)
+    try:
+        yield calls
+    finally:
+        setattr(owner, attr, fn)
+
+
+def sweep_exactness(dev, weights: str = WEIGHTS, overrides=()) -> dict:
+    """The flagship's exact sweep frame (warp_scale None, exact colours)
+    against the port's general path composited over the sweep's own
+    ladder (tests/test_sweep.py:58-71), f32, on view 1 of the first scene
+    of SWEEP_RUNS[0]'s config: raises unless rgb, depth and weights are
+    within SWEEP_EXACT_TOL and the invalid masks equal."""
+    import torch
+    from behindthescenes_tpu_torch import geometry
+    from behindthescenes_tpu_torch import renderer as rlib
+    from behindthescenes_tpu_torch.config import (find_config, load_config,
+                                                  parse_cli_overrides)
+    from behindthescenes_tpu_torch.datasets.factory import make_test_dataset
+    from behindthescenes_tpu_torch.datasets.synthetic import collate
+    from behindthescenes_tpu_torch.models import sweep
+    from behindthescenes_tpu_torch.models.bts import BTSNet
+    from behindthescenes_tpu_torch.weights import load_weights
+    name, _, sweep_over, _ = SWEEP_RUNS[0]
+    conf = load_config(find_config(name), parse_cli_overrides(
+        [*sweep_over, *overrides]))
+    mc = conf["model_conf"]
+    cfg = rlib.RendererConfig.from_conf(conf["renderer"])
+    net = load_weights(BTSNet.from_conf(mc), weights).to(dev).eval()
+    batch = collate([make_test_dataset(conf["data"])[0]])
+    images, projs, poses = (torch.as_tensor(batch[k], device=dev)
+                            for k in ("imgs", "projs", "poses"))
+    _, _, h, w, _ = images.shape
+    poses = geometry.rebase_poses_to_keyframe(poses)
+    pose, proj = poses[0, 1], projs[0, 1]
+    with torch.no_grad():
+        grid = net.encode(images, projs, poses, ids_encoder=[0],
+                          ids_render=[0], images_alt=images[:, :1] * 0.5
+                          + 0.5)
+        got = sweep.render_frame_sweep(net, grid, pose, proj, (h, w), cfg,
+                                       warp_scale=None,
+                                       color_mode="exact")["coarse"]
+        z = sweep.sweep_z_ladder(cfg.n_coarse, mc["z_near"], mc["z_far"],
+                                 cfg.lindisp, device=images.device)
+        focal = torch.stack([proj[0, 0], proj[1, 1]])
+        center = torch.stack([proj[0, 2], proj[1, 2]])
+        rays = geometry.gen_rays(pose[None], w, h, mc["z_near"],
+                                 mc["z_far"], focal=focal,
+                                 c=center).reshape(1, h * w, 8)
+        want = rlib.composite(
+            lambda xyz, coarse: net.query(grid, xyz, coarse=coarse), rays,
+            z.expand(1, h * w, cfg.n_coarse), cfg)
+    err = {k: (got[k].float() - want[k].float()).abs().max().item()
+           for k in SWEEP_EXACT_TOL}
+    same_invalid = torch.equal(got["invalid"][..., 0] > 0,
+                               want["invalid"][..., 0] > 0)
+    if not same_invalid or any(err[k] > t for k, t in
+                               SWEEP_EXACT_TOL.items()):
+        raise AssertionError(f"exact sweep vs the general path: max abs "
+                             f"{err} (bounds {SWEEP_EXACT_TOL}); invalid "
+                             f"masks equal: {same_invalid}")
+    return {"max_abs": err, "invalid_equal": same_invalid,
+            "shape": [h, w, cfg.n_coarse]}
+
+
+def sweep_phase(dev, card: str, clock_fn, general_frame_ms: dict,
+                overrides=(), frames: int = NVS_TIMED_FRAMES) -> dict:
+    """Phase 21: each of SWEEP_RUNS through `config_phase` (the means
+    within JAX_GAP of JAX's sweep means and above NVS_FLOORS, no decode
+    kernel, every frame through render_frame_sweep), the flagship's
+    SWEEP_PROFILES timed beside phase 10's general-path frame, and
+    `sweep_exactness`. Prints and returns the record."""
+    import torch
+    from behindthescenes_tpu_torch.evaluation import nvs
+    out = {"card": card, "runs": []}
+    for name, checkpoint, sweep_over, jax_means in SWEEP_RUNS:
+        t = time.perf_counter()
+        with counted_calls(nvs, "render_frame_sweep") as frames_swept, \
+                recorded_evaluations() as calls:
+            res = config_phase(name, checkpoint, jax_means, dev, clock_fn(),
+                               (*sweep_over, *overrides), frames)
+            n_swept = len(frames_swept)
+            if name == SWEEP_RUNS[0][0]:
+                ev, batch = calls[-1][0], calls[-1][1]
+                profiles = {}
+                base = dict(ev.sweep_conf)
+                for label, change in SWEEP_PROFILES.items():
+                    ev.sweep_conf = dict(base, **change)
+                    if torch.device(dev).type == "cuda":
+                        torch.cuda.reset_peak_memory_stats()
+                    fm = nvs_frame_ms(ev, batch, clock_fn(), frames)
+                    fm["peak_memory"] = torch.cuda.max_memory_allocated() \
+                        if torch.device(dev).type == "cuda" else None
+                    profiles[label] = fm
+                res["profiles"] = profiles
+        res["overrides"] = list(sweep_over)
+        res["frames_swept"] = n_swept
+        if n_swept <= 0 or any(res["launches"].values()):
+            raise AssertionError(f"{name} sweep: {n_swept} frames through "
+                                 f"render_frame_sweep, decode kernel "
+                                 f"launches {res['launches']}")
+        out["runs"].append(res)
+        keys = list(jax_means)
+        fm, peak = res["frame_ms"], res["peak_memory"]
+        print(f"[chip_smoke] {name} sweep ({card}): "
+              + ", ".join(f"{k} {res['means'][k]:.6f} (JAX's sweep on the "
+                          f"CPU {jax_means[k]:.6f}, gap "
+                          f"{res['gap_' + k]:+.6f}, bound {JAX_GAP[k]})"
+                          for k in keys)
+              + f"; {n_swept} frames swept; frame median {fm['frame']:.3f} "
+              f"ms (encode {fm['encode']:.3f}, render {fm['render']:.3f}); "
+              "peak memory " + ("not measured" if peak is None
+                                else f"{peak / 2**30:.2f} GiB"), flush=True)
+        if "profiles" in res:
+            gen = general_frame_ms.get(name)
+            print(f"[chip_smoke] {name} frame by sweep profile ({card}): "
+                  + "; ".join(
+                      f"{label} {fm['frame']:.3f} ms (render "
+                      f"{fm['render']:.3f}, peak "
+                      + ("not measured" if fm["peak_memory"] is None
+                         else f"{fm['peak_memory'] / 2**30:.2f} GiB") + ")"
+                      for label, fm in res["profiles"].items())
+                  + "; the general path (phase 10, 24 + 16 reuse) "
+                  + ("not measured" if gen is None
+                     else f"{gen['frame']:.3f} ms"), flush=True)
+        log(f"phase 21 {name} sweep", "within the bounds of JAX's sweep "
+            "means", t)
+    t = time.perf_counter()
+    out["exactness"] = sweep_exactness(dev, overrides=overrides)
+    print(f"[chip_smoke] exact sweep vs the general path on its ladder, "
+          f"f32, {out['exactness']['shape']}: max abs "
+          + json.dumps(out["exactness"]["max_abs"])
+          + f" (bounds {json.dumps(SWEEP_EXACT_TOL)}); invalid masks equal",
+          flush=True)
+    log("phase 21 exactness", "the exact sweep equals the general path", t)
+    return out
+
+
+def tile_fit_and_points(conf: dict, weights: str, batch: dict, draws,
+                        dev) -> dict:
+    """One f32 train step of `conf` (with a tile region) on `dev`, every
+    call of the tile fetch recorded: the share of tiles that fit their
+    region (tile_region_fit, the JAX package's test), the points of
+    fitting tiles whose footprint passes the region's last texel (JAX's
+    test passes a tile whose span is within a texel of the region while
+    its region starts at the truncated minimum), and every other point of
+    a fitting tile against grid_sample_2d on the same map (max abs
+    deviation). Raises beyond TILE_POINT_ATOL or if the step fetched no
+    tile."""
+    import torch
+    from behindthescenes_tpu_torch.models import bts
+    from behindthescenes_tpu_torch.ops import grid_sample as gs
+    with counted_calls(bts, "grid_sample_2d_tiles") as calls:
+        one_step(conf, weights, batch, draws, dev, torch.float32)
+    if not calls:
+        raise AssertionError("the tile step fetched no tile")
+    fit = tiles = points = past_edge = 0
+    max_dev = 0.0
+    with torch.no_grad():
+        for (image, coords, region), _ in calls:
+            ok = gs.tile_region_fit(coords, image.shape[:2], region)
+            fit += int(ok.sum())
+            tiles += ok.numel()
+            if not ok.any():
+                continue
+            inside = gs.tile_points_inside(coords[ok], image.shape[:2],
+                                           region)
+            points += inside.numel()
+            past_edge += int((~inside).sum())
+            got = gs.grid_sample_2d_tiles(image, coords[ok], region)
+            want = gs.grid_sample_2d(
+                image.expand((int(ok.sum()),) + image.shape), coords[ok])
+            max_dev = max(max_dev,
+                          (got - want)[inside].abs().max().item())
+    if max_dev > TILE_POINT_ATOL:
+        raise AssertionError(f"tile fetch vs grid_sample_2d: {max_dev:.3e}")
+    return {"tiles": tiles, "fit": fit, "fit_share": fit / tiles,
+            "calls": len(calls), "points": points, "past_edge": past_edge,
+            "point_max_abs": max_dev, "dtype": str(calls[0][0][0].dtype)}
+
+
+def tile_phase(dev, card: str, clock_fn, overrides=(),
+               steps: int = TRAIN_STEPS,
+               timed_from: int = TIMED_FROM) -> dict:
+    """Phase 22: TRAIN_CONFIG with and without the tile fetch on one
+    batch and one set of draws: the fit share and the per-point check of
+    `tile_fit_and_points`; where every tile fits, the f32 tile step
+    against the gather step (LOSS_RTOL, GRAD_NORM_RTOL); and `steps`
+    steps of each path in bf16 and f32, timed as phase 8 times them.
+    Prints and returns the record."""
+    import copy
+    import torch
+    from behindthescenes_tpu_torch import train as train_cli
+    t = time.perf_counter()
+    conf = train_cli.config(TRAIN_CONFIG, overrides=overrides)
+    tile = copy.deepcopy(conf)
+    tile["model_conf"]["tile_fetch_region"] = list(TILE_REGION)
+    batch = train_batch(conf)
+    draws = numpy_draws(conf, batch, TRAIN_SEED)
+    out = {"card": card, "region": list(TILE_REGION), "steps": steps,
+           "timed_from": timed_from}
+    out["fit"] = fit = tile_fit_and_points(tile, WEIGHTS, batch, draws, dev)
+    missed = fit["tiles"] - fit["fit"]
+    if missed == 0:
+        out["vs_gather"] = step_gap(
+            one_step(tile, WEIGHTS, batch, draws, dev, torch.float32),
+            one_step(conf, WEIGHTS, batch, draws, dev, torch.float32),
+            LOSS_RTOL, GRAD_NORM_RTOL, "tile step vs gather step")
+    print(f"[chip_smoke] tile fetch {list(TILE_REGION)} on {TRAIN_CONFIG} "
+          f"({fit['dtype']}): {fit['fit']} of {fit['tiles']} tiles fit "
+          f"({100 * fit['fit_share']:.2f}%), {missed} do not; of their "
+          f"{fit['points']} points {fit['past_edge']} pass the region's "
+          f"last texel; the others against grid_sample_2d max abs "
+          f"{fit['point_max_abs']:.3e} (bound {TILE_POINT_ATOL})"
+          + ("" if missed else
+             f"; f32 step vs the gathers: loss "
+             f"{out['vs_gather']['loss_rel']:.2e} relative (bound "
+             f"{LOSS_RTOL}), gradient norms "
+             f"{out['vs_gather']['grad_norm_rel_max']:.2e} (bound "
+             f"{GRAD_NORM_RTOL})"), flush=True)
+    log("phase 22 tile fit", "fitting points equal grid_sample_2d", t)
+    for mode, bf16 in (("bf16", True), ("f32", False)):
+        for path, c in (("tile", tile), ("gather", conf)):
+            t = time.perf_counter()
+            cuda = torch.device(dev).type == "cuda"
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            res = train_steps(c, WEIGHTS, batch, draws, dev, bf16,
+                              clock_fn(), steps, timed_from)
+            res["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
+                if cuda else None
+            out[f"{path} {mode}"] = res
+            med, peak = res["median_ms"], res["max_memory_allocated"]
+            print(f"[chip_smoke] train {mode} {path} ({card}): loss "
+                  f"{res['losses'][0]:.6f} -> {res['losses'][-1]:.6f}; "
+                  f"median step {med['step']:.2f} ms over steps "
+                  f"{timed_from}-{steps - 1}: "
+                  + ", ".join(f"{k} {med[k]:.2f}" for k in STAGES)
+                  + " ms; peak memory " + ("not measured" if peak is None
+                                           else f"{peak / 2**30:.2f} GiB"),
+                  flush=True)
+            log(f"phase 22 train {mode} {path}", "losses finite and "
+                "falling", t)
+    return out
+
+
+def demo_phase(dev, card: str, image_model=("kitti_raw", K360_WEIGHTS),
+               imgs_run=("exp_synthetic", STEP8400_WEIGHTS),
+               reference: str = DEMO_REFERENCE, extra=(),
+               timed: int = DEMO_TIMED):
+    """Phase 23: gen_img_custom (DEMO_IMAGE, image_model) and gen_imgs
+    (imgs_run, DEMO_IMGS_INDICES) through the port on `dev` into a
+    temporary directory, each with the jitter_density launches counted
+    from 0 (one per depth map) and each launch held against the plain
+    version; gen_img_custom's grids held to `reference` (DEMO_* bounds);
+    the depth and the profile of the example image timed. Returns (the
+    record, {"gen_img_custom": its launch's (args, kwargs), "gen_imgs":
+    its first launch's})."""
+    import numpy as np
+    import torch
+    from behindthescenes_tpu_torch import inference
+    from behindthescenes_tpu_torch.ops import kernels
+    from behindthescenes_tpu_torch.scripts import (gen_img_custom, gen_imgs,
+                                                   inference_setup as iset)
+    from behindthescenes_tpu_torch.utils.io import read_image
+    from behindthescenes_tpu_torch.datasets.png import resize_linear
+    out = {"card": card}
+    model, checkpoint = image_model
+    device = ["--device", str(dev)]
+    with tempfile.TemporaryDirectory(prefix="demos_") as tmp:
+        t = time.perf_counter()
+        kernels.reset_launch_counts()
+        with recorded_kernel_args() as (_, state):
+            state["mode"], state["calls"] = "gen_img_custom", []
+            res = gen_img_custom.main([
+                "--img", DEMO_IMAGE, "--model", model, "--checkpoint",
+                checkpoint, "--out", os.path.join(tmp, "img"), *device,
+                *extra])
+            custom_calls = state["calls"]
+        custom = kernels.launch_counts()
+        written = sorted(os.listdir(os.path.join(tmp, "img")))
+        kernels.reset_launch_counts()
+        with recorded_kernel_args() as (_, state):
+            state["mode"], state["calls"] = "gen_imgs", []
+            depths = gen_imgs.main([
+                "-cn", imgs_run[0], "--checkpoint", imgs_run[1],
+                "--indices", *map(str, DEMO_IMGS_INDICES), "--out",
+                os.path.join(tmp, "imgs"), *device, *extra])
+            imgs_calls = state["calls"]
+        imgs = kernels.launch_counts()
+        written_imgs = sorted(os.listdir(os.path.join(tmp, "imgs")))
+    n_imgs = len(DEMO_IMGS_INDICES)
+    want_custom = {k: 1 if k == "jitter_density" else 0 for k in custom}
+    want_imgs = {k: n_imgs if k == "jitter_density" else 0 for k in imgs}
+    if custom != want_custom or imgs != want_imgs \
+            or len(written) != 3 or len(written_imgs) != 3 * n_imgs:
+        raise AssertionError(f"demos: launches {custom} and {imgs} (want "
+                             f"{want_custom}, {want_imgs}); files "
+                             f"{written}, {written_imgs}")
+    errs = [against_plain("jitter_density", name, args, kwargs,
+                          f"demo launch {i}")[0]
+            for i, (name, args, kwargs) in enumerate(custom_calls
+                                                     + imgs_calls)]
+    out["launches"] = {"gen_img_custom": custom, "gen_imgs": imgs}
+    out["max_abs_err"] = errs
+    out["launch_shapes"] = [list(args[0].shape) for _, args, _ in
+                            custom_calls + imgs_calls]
+    ref = np.load(reference)
+    cells = float(np.mean(np.abs(res["profile"] - ref["profile"])
+                          <= DEMO_PROFILE_ATOL))
+    sigma_rel = float(np.linalg.norm(res["sigma"] - ref["sigma"])
+                      / np.linalg.norm(ref["sigma"]))
+    ref_depth = ref["depth"].astype(np.float32)
+    depth_rel = float(np.median(np.abs(res["depth"] - ref_depth)
+                                / ref_depth))
+    out["vs_jax"] = {"profile_cells_equal": cells, "sigma_rel": sigma_rel,
+                     "depth_median_rel": depth_rel}
+    if not (cells >= DEMO_CELLS_EQUAL and sigma_rel <= DEMO_SIGMA_RTOL
+            and depth_rel <= DEMO_DEPTH_MEDIAN_REL
+            and np.isfinite(res["depth"]).all()
+            and all(np.isfinite(d).all() for d, _ in depths)):
+        raise AssertionError(f"gen_img_custom vs the JAX demo: "
+                             f"{out['vs_jax']}")
+    print(f"[chip_smoke] gen_img_custom --model {model} ({card}): "
+          f"jitter_density launches {custom['jitter_density']} on "
+          f"{out['launch_shapes'][0]} (max abs deviation from the plain "
+          f"version {max(errs):.3e}); against the JAX demo on the CPU: "
+          f"profile cells within {DEMO_PROFILE_ATOL} {100 * cells:.2f}% "
+          f"(min {100 * DEMO_CELLS_EQUAL:.0f}%), sigma relative error "
+          f"{sigma_rel:.2e} (max {DEMO_SIGMA_RTOL}), depth median relative "
+          f"difference {depth_rel:.2e} (max {DEMO_DEPTH_MEDIAN_REL}); "
+          f"gen_imgs -cn {imgs_run[0]}: {imgs['jitter_density']} "
+          f"jitter_density launches; {len(written) + len(written_imgs)} "
+          "PNGs written", flush=True)
+    log("phase 23 demos", "the demos ran through jitter_density and agree "
+        "with the JAX demo", t)
+    # The example image's depth and profile, timed on the card.
+    t = time.perf_counter()
+    net, rcfg, config = iset.setup_model(model, checkpoint, device=dev)
+    h, w = iset.DEFAULT_RESOLUTION[model]
+    img = resize_linear(read_image(DEMO_IMAGE), (h, w))
+    mc = config["model_conf"]
+    with torch.no_grad():
+        grid = iset.encode_image(net, img, *iset.DEFAULT_INTRINSICS[model])
+        gen = torch.Generator(device=torch.device(dev))
+        gen.manual_seed(0)
+        if torch.device(dev).type == "cuda":
+            out["depth_ms"] = cuda_ms(lambda: inference.render_depth_selfview(
+                net, grid, h, w, rcfg, mc["z_near"], mc["z_far"],
+                generator=gen), iters=timed)
+            out["profile_ms"] = cuda_ms(lambda: inference.render_profile(
+                net, grid), iters=timed)
+            out["encode_ms"] = cuda_ms(lambda: iset.encode_image(
+                net, img, *iset.DEFAULT_INTRINSICS[model]), iters=timed)
+        else:
+            out["depth_ms"] = out["profile_ms"] = out["encode_ms"] = None
+    fmt = {k: "not measured" if out[k] is None else f"{out[k]:.3f} ms"
+           for k in ("depth_ms", "profile_ms", "encode_ms")}
+    print(f"[chip_smoke] gen_img_custom frame ({card}), {h}x{w}x"
+          f"{rcfg.n_coarse} bf16: depth {fmt['depth_ms']}, BEV profile "
+          f"(180 x 180 cells) {fmt['profile_ms']}, encode "
+          f"{fmt['encode_ms']}", flush=True)
+    log("phase 23 timing", card, t)
+    return out, {"gen_img_custom": custom_calls[0][1:],
+                 "gen_imgs": imgs_calls[0][1:]}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2264,13 +2712,36 @@ def main() -> None:
         max(disk["eval_depth"]["max_abs_err"]), "eval_depth", found[0]))
     log("phase 18 timing", f"eval_depth's kernel, {card}", t)
 
+    # -- 21-23: sweep serving, the tile fetch, the image demos -----------
+    sweep_res = sweep_phase(dev, card, cuda_clock, {
+        c["config"]: c["frame_ms"] for c in configs if "frame_ms" in c})
+    tile_res = tile_phase(dev, card, cuda_clock)
+    demos, demo_launches = demo_phase(dev, card)
+    t = time.perf_counter()
+    for script, name, mode in (
+            ("gen_img_custom", "jitter_density_demo",
+             "gen_img_custom kitti_raw"),
+            ("gen_imgs", "jitter_density_demo_h32", "gen_imgs exp_synthetic")):
+        args, kwargs = demo_launches[script]
+        piece = f"jitter_density_kernelILi{args[1].shape[1]}E"
+        found = [v for k, v in ptxas.items() if piece in k]
+        if len(found) != 1:
+            raise AssertionError(f"ptxas report: {len(found)} kernels match "
+                                 f"{piece}")
+        records.append(kernel_record(
+            name, "jitter_density", "jitter_density", args, kwargs,
+            demos["launches"][script]["jitter_density"],
+            max(demos["max_abs_err"]), mode, found[0]))
+    log("phase 23 kernel timing", f"the demos' kernel, {card}", t)
+
     print(json.dumps({"frame_ms": frame_ms, "encode_ms": encode_ms,
                       "serving": serving, "general_path": general["means"],
                       "train_parity": parity, "training": training,
                       "configs": configs, "fine_pass": fine,
                       "occupancy": [res for res, _ in occupancy],
                       "k360_training": k360_run, "fast_training": fast,
-                      "disk_benchmarks": disk}),
+                      "disk_benchmarks": disk, "sweep": sweep_res,
+                      "tile_fetch": tile_res, "demos": demos}),
           flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)

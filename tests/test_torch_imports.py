@@ -122,3 +122,14 @@ def test_source_scan_covers_the_kitti_raw_and_re10k_path():
     assert {os.path.join("datasets", f) for f in (
         "jpeg.py", "kitti_raw.py", "realestate10k.py",
         "gen_synthetic_kitti_raw.py", "gen_synthetic_re10k.py")} <= scanned
+
+
+def test_source_scan_covers_the_sweep_and_the_demos():
+    """The scan and the blocked-import probe reach the sweep renderer, the
+    image IO that replaces cv2's, and the demo scripts."""
+    scanned = {os.path.relpath(p, PORT) for p in _sources()}
+    assert {os.path.join(*f) for f in (
+        ("models", "sweep.py"), ("utils", "io.py"),
+        ("scripts", "__init__.py"), ("scripts", "inference_setup.py"),
+        ("scripts", "gen_img_custom.py"), ("scripts", "gen_imgs.py"))} \
+        <= scanned

@@ -210,10 +210,23 @@ def test_re10k_selfview_depth_matches_jax():
     _close(got, want)
 
 
-def test_nvs_sweep_is_refused():
-    mc, _, _, net = _sides("eval_synthetic_thin_nvs", THIN)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        NVSEvaluator(net, tr.RendererConfig(), dict(mc, nvs_sweep=True))
+def test_nvs_sweep_matches_jax():
+    """eval_synthetic_thin_nvs's model with sweep-mode serving, one scene
+    at 24x32, f32: the port's evaluator with `nvs_sweep: true` (the
+    defaults: warp 0.5, decode at the lattice, top-8 colours) against
+    JAX's with those defaults named (JAX reads `true` as an empty dict
+    and renders its general path then,
+    behindthescenes_tpu/evaluation/nvs.py:39-42). The sweep draws
+    nothing: PSNR within PSNR_TOL, SSIM within SSIM_TOL."""
+    mc, jnet, variables, net = _sides("eval_synthetic_thin_nvs", THIN)
+    cfg = dict(n_coarse=16, lindisp=True, hard_alpha_cap=True)
+    jmc = dict(mc, nvs_sweep={"warp_scale": 0.5})
+    want = JNVS(jnet, jr.RendererConfig(**cfg), jmc).evaluate(
+        variables, _batch("street", (24, 32)))
+    got = NVSEvaluator(net, tr.RendererConfig(**cfg),
+                       dict(mc, nvs_sweep=True)).evaluate(
+        _batch("street", (24, 32)))
+    _close(got, want)
 
 
 # ------------------------------------------------------ the task runner
@@ -271,11 +284,10 @@ def test_tasks_compute_in_bf16_by_default():
 
 def test_unported_tasks_and_checkpoints_are_refused(tmp_path):
     """What is still refused names itself: an orbax step directory of the
-    JAX package and sweep-mode NVS serving (ROADMAP Queue A item 4).
-    Training with the fine pass (n_fine > 0) runs now (its step is held
-    to JAX's in tests/test_torch_train_modes.py), and its trainer's
-    checkpoint loads for evaluation. Run and step directories of the
-    port's harness and reference `.pt` checkpoints load now (a step
+    JAX package. Training with the fine pass (n_fine > 0) runs now (its
+    step is held to JAX's in tests/test_torch_train_modes.py), and its
+    trainer's checkpoint loads for evaluation. Run and step directories of
+    the port's harness and reference `.pt` checkpoints load now (a step
     directory here; tests/test_torch_run_harness.py and
     tests/test_torch_import.py hold them to the JAX package); an unknown
     file still raises, and no checkpoint keeps the net as it is."""
@@ -287,9 +299,6 @@ def test_unported_tasks_and_checkpoints_are_refused(tmp_path):
     with pytest.raises(NotImplementedError, match="orbax"):
         harness.load_eval_variables(
             {"checkpoint": str(tmp_path / "orbax")}, net)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        NVSEvaluator(net, tr.RendererConfig.from_conf(conf["renderer"]),
-                     dict(conf["model_conf"], nvs_sweep=True))
     trainer = BTSTrainer(dict(conf, renderer=dict(conf["renderer"],
                                                   n_fine=4)), device="cpu")
     trainer.init_state()
