@@ -84,3 +84,41 @@ class DataLoader:
                 for futures in pending:
                     for f in futures:
                         f.cancel()
+
+
+class _Strided:
+    """Items rank, rank + world, rank + 2 world, ... of a dataset: the
+    first len(dataset) // world of them, or with `cover` every one (the
+    ranks' shares then cover the dataset, the first ones an item
+    longer)."""
+
+    def __init__(self, dataset, rank: int, world: int, cover: bool = False):
+        self.dataset = dataset
+        self.rank = rank
+        self.world = world
+        n = len(dataset)
+        self.length = -(-(n - rank) // world) if cover else n // world
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, i):
+        if not 0 <= i < self.length:
+            raise IndexError(i)
+        return self.dataset[i * self.world + self.rank]
+
+
+def shard_for_host(dataset, host_id: int, num_hosts: int):
+    """The rank's share of a training set (behindthescenes_tpu/datasets/
+    loader.py:118-131, in place of DistributedSampler): items host_id +
+    i * num_hosts, disjoint across ranks and without padding, the
+    remainder of len(dataset) / num_hosts left out (17 items over 2 ranks
+    give 8 each)."""
+    return _Strided(dataset, host_id, num_hosts)
+
+
+def split_for_rank(dataset, rank: int, world: int):
+    """The rank's share of an evaluation set: items rank + i * world, the
+    ranks' shares disjoint and covering every item (17 items over 2 ranks
+    give 9 and 8)."""
+    return _Strided(dataset, rank, world, cover=True)

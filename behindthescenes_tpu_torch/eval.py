@@ -8,6 +8,14 @@ dispatches on `model`: bts (depth; `mode: nvs` adds the NVS metrics),
 bts_nvs (novel-view synthesis), bts_lidar and bts_3dbb (KITTI-360 LiDAR
 and 3D-box occupancy). Prints the mean metrics as one JSON line. Runs on
 the card unless --device says otherwise.
+
+    torchrun --nproc_per_node=N -m behindthescenes_tpu_torch.eval -cn ...
+
+evaluates on N ranks, one card each (NCCL; gloo with --device cpu):
+every rank reads every item and renders its share of each frame's rays
+(or occupancy points), so every rank holds the same metrics; rank 0
+prints them. BTS_EVAL_SHARD=0 renders whole frames on
+every rank.
 """
 from __future__ import annotations
 
@@ -17,6 +25,8 @@ import json
 from behindthescenes_tpu_torch.config import (find_config, load_config,
                                               parse_cli_overrides)
 from behindthescenes_tpu_torch.evaluation.tasks import TASKS
+from behindthescenes_tpu_torch.parallel.mesh import (backend_for,
+                                                     init_distributed)
 
 
 def main(argv=None) -> dict:
@@ -31,8 +41,11 @@ def main(argv=None) -> dict:
     model = config.get("model", "bts")
     if model not in TASKS:
         raise ValueError(f"Unknown eval task: {model}")
+    rank, _ = init_distributed(config, backend=backend_for(args.device))
     metrics = TASKS[model](config, device=args.device)
-    print(json.dumps({k: float(v) for k, v in metrics.items()}), flush=True)
+    if rank == 0:
+        print(json.dumps({k: float(v) for k, v in metrics.items()}),
+              flush=True)
     return metrics
 
 

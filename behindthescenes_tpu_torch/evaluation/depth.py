@@ -5,7 +5,10 @@ Encodes the keyframe, renders its depth through the dense self-view query
 or through the general cross-view path, optionally aligns scale (median /
 L2 least squares), and computes the 7 standard depth metrics; with
 `eval_nvs` (the task runner's `mode: nvs`) it renders every view through
-the general path and adds the NVS metrics of the middle frame.
+the general path and adds the NVS metrics of the middle frame. Under a
+launcher of several ranks the general path shares each frame's rays among
+them (`parallel.mesh.eval_group`); the self-view path, dense per pixel,
+runs whole on every rank, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from behindthescenes_tpu_torch.evaluation import metrics as M
 from behindthescenes_tpu_torch.evaluation.nvs import crop_box, render_general
 from behindthescenes_tpu_torch.inference import render_depth_selfview
 from behindthescenes_tpu_torch.models.bts import BTSNet
+from behindthescenes_tpu_torch.parallel.mesh import eval_group
 from behindthescenes_tpu_torch.platform import exact_f32
 
 
@@ -52,6 +56,7 @@ class DepthEvaluator:
         self.lpips = M.LPIPSVGG.maybe_create(
             lpips_weights, next(net.parameters()).device) if eval_nvs \
             else None
+        self.group = None if self.use_selfview else eval_group()
 
     @torch.no_grad()
     def render(self, images, projs, poses, generator=None, z_samp=None,
@@ -86,7 +91,8 @@ class DepthEvaluator:
         arguments."""
         render_dict = render_general(self.net, images, projs, poses,
                                      self.cfg, self.z_near, self.z_far,
-                                     generator, z_jitter, fine_draws)
+                                     generator, z_jitter, fine_draws,
+                                     group=self.group)
         for branch in ("coarse", "fine"):
             render_dict[branch]["depth"] = geometry.distance_to_z(
                 render_dict[branch]["depth"], projs)

@@ -21,6 +21,8 @@ import torch
 
 from behindthescenes_tpu_torch.inference import render_depth_selfview
 from behindthescenes_tpu_torch.models.bts import BTSNet
+from behindthescenes_tpu_torch.parallel.mesh import (eval_group,
+                                                     sharded_point_query)
 from behindthescenes_tpu_torch.platform import exact_f32
 
 EPS = 1e-4
@@ -181,8 +183,10 @@ def occupancy_metrics(is_occupied_pred, is_occupied, is_visible) -> dict:
 
 class OccupancyQuery:
     """What both occupancy evaluators run on the model's device: the
-    keyframe's encoding with its jittered self-view pseudo-depth, and the
-    density of world points in chunks of `query_batch_size`."""
+    keyframe's encoding with its jittered self-view pseudo-depth (whole on
+    every rank), and the density of world points in chunks of
+    `query_batch_size`, shared among the ranks of the evaluators' group
+    (`parallel.mesh.eval_group`)."""
 
     def __init__(self, net: BTSNet, renderer_cfg, config: dict):
         exact_f32()
@@ -192,6 +196,7 @@ class OccupancyQuery:
         self.z_far = config["z_far"]
         self.query_batch_size = config.get("query_batch_size", 50000)
         self.occ_threshold = 0.5
+        self.group = eval_group()
 
     @torch.no_grad()
     def encode_and_depth(self, images, projs, poses, images_alt, out_hw,
@@ -215,16 +220,15 @@ class OccupancyQuery:
 
     @torch.no_grad()
     def query_density(self, grid, pts: np.ndarray) -> np.ndarray:
-        """Density (P,) at world points pts (P, 3), on the host."""
-        dev = grid.f_ks.device
-        pts_t = torch.as_tensor(pts, device=dev)
-        out = []
-        for i in range(0, pts_t.shape[0], self.query_batch_size):
-            _, _, sigma = self.net.query(
-                grid, pts_t[None, i:i + self.query_batch_size],
-                only_density=True)
-            out.append(sigma[0, :, 0])
-        return torch.cat(out).float().cpu().numpy()
+        """Density (P,) at world points pts (P, 3), on the host: through
+        `sharded_point_query`, each rank of the evaluators' group over its
+        share of the points in chunks of `query_batch_size` (points per
+        rank)."""
+        def body(chunk):
+            return self.net.query(grid, chunk, only_density=True)[2][0, :, 0]
+        query = sharded_point_query(self.group, self.query_batch_size, body)
+        pts_t = torch.as_tensor(pts, device=grid.f_ks.device)
+        return query(pts_t).float().cpu().numpy()
 
 
 class LidarOccEvaluator(OccupancyQuery):

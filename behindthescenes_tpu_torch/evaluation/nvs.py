@@ -4,7 +4,9 @@ models/bts/evaluator_nvs.py): encode frame 0 (optionally at a reduced
 resolution), render every frame from that encoding through the general
 cross-view path or, with `model_conf.nvs_sweep`, through the sweep path
 (models/sweep.py), and compute PSNR/SSIM/LPIPS with a 5% border crop on
-every frame but the source.
+every frame but the source. Under a launcher of several ranks
+(`parallel.mesh.eval_group`) every rank encodes the frame and renders its
+share of each frame's rays; every rank then holds the same metrics.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from behindthescenes_tpu_torch import geometry
 from behindthescenes_tpu_torch.evaluation import metrics as M
 from behindthescenes_tpu_torch.models.bts import BTSNet
 from behindthescenes_tpu_torch.models.sweep import render_frame_sweep
+from behindthescenes_tpu_torch.parallel.mesh import eval_group
 from behindthescenes_tpu_torch.platform import exact_f32
 from behindthescenes_tpu_torch.ray_sampler import ImageRaySampler
 from behindthescenes_tpu_torch.renderer import render_rays_chunked
@@ -35,14 +38,16 @@ def crop_box(h: int, w: int):
 def render_general(net: BTSNet, images, projs, poses, cfg, z_near: float,
                    z_far: float, generator=None, z_jitter=None,
                    fine_draws=None, images_alt=None, enc_images=None,
-                   mark: Optional[Callable[[str], None]] = None) -> dict:
+                   mark: Optional[Callable[[str], None]] = None,
+                   group=None) -> dict:
     """Every view's rays of a batch (n = 1) through the cross-view query
     with view 0 encoded, in chunks of EVAL_RAY_CHUNK rays: the render
     dict of both branches (the coarse one standing in for a missing fine
     pass), reconstructed to (1, v, h, w, ...). enc_images replaces the
     encoder's input; z_jitter (1, v*h*w, n_coarse) and fine_draws replace
     the generator's draws; mark(name) is called after "encode" and
-    "render"."""
+    "render"; group: ranks that share the rays (EVAL_RAY_CHUNK rays per
+    rank; `render_rays_chunked`)."""
     _, _, h, w, _ = images.shape
     poses_r = geometry.rebase_poses_to_keyframe(poses)
     grid = net.encode(images if enc_images is None else enc_images, projs,
@@ -58,7 +63,7 @@ def render_general(net: BTSNet, images, projs, poses, cfg, z_near: float,
 
     out = render_rays_chunked(query_fn, rays, cfg, ray_chunk=EVAL_RAY_CHUNK,
                               generator=generator, z_jitter=z_jitter,
-                              fine_draws=fine_draws)
+                              fine_draws=fine_draws, group=group)
     render_dict = sampler.reconstruct(
         {"coarse": out["coarse"],
          "fine": out.get("fine", dict(out["coarse"]))})
@@ -69,11 +74,12 @@ def render_general(net: BTSNet, images, projs, poses, cfg, z_near: float,
 
 def render_sweep(net: BTSNet, images, projs, poses, cfg, sweep_conf: dict,
                  enc_images=None,
-                 mark: Optional[Callable[[str], None]] = None):
+                 mark: Optional[Callable[[str], None]] = None, group=None):
     """Every view of a batch (n = 1) rendered by `render_frame_sweep`
     (with the keywords sweep_conf) from view 0's encoding: rgb (v, h, w,
     3). enc_images replaces the encoder's input; mark(name) is called
-    after "encode" and "render". Draws nothing."""
+    after "encode" and "render"; group: ranks that share each frame's
+    rays. Draws nothing."""
     _, v, h, w, _ = images.shape
     poses_r = geometry.rebase_poses_to_keyframe(poses)
     grid = net.encode(images if enc_images is None else enc_images, projs,
@@ -82,7 +88,7 @@ def render_sweep(net: BTSNet, images, projs, poses, cfg, sweep_conf: dict,
     if mark:
         mark("encode")
     rgb = torch.stack([render_frame_sweep(
-        net, grid, poses_r[0, vi], projs[0, vi], (h, w), cfg,
+        net, grid, poses_r[0, vi], projs[0, vi], (h, w), cfg, group=group,
         **sweep_conf)["fine"]["rgb"][0] for vi in range(v)])
     if mark:
         mark("render")
@@ -111,6 +117,7 @@ class NVSEvaluator:
             else None
         self.lpips = M.LPIPSVGG.maybe_create(
             lpips_weights, next(net.parameters()).device)
+        self.group = eval_group()
 
     @torch.no_grad()
     def render(self, images, projs, poses, generator=None, z_jitter=None,
@@ -127,11 +134,13 @@ class NVSEvaluator:
             enc_images = images[:, :, ys][:, :, :, xs]
         if self.sweep_conf is not None:
             return render_sweep(self.net, images, projs, poses, self.cfg,
-                                self.sweep_conf, enc_images, mark)
+                                self.sweep_conf, enc_images, mark,
+                                self.group)
         rd = render_general(self.net, images, projs, poses, self.cfg,
                             self.z_near, self.z_far, generator, z_jitter,
                             fine_draws, images_alt=images[:, :1] * 0.5 + 0.5,
-                            enc_images=enc_images, mark=mark)
+                            enc_images=enc_images, mark=mark,
+                            group=self.group)
         return rd["fine"]["rgb"][0].mean(-2)
 
     def evaluate(self, batch, generator=None, **draws) -> dict:

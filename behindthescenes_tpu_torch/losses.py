@@ -6,6 +6,14 @@ criteria, the invalid policies, the regularizers, the Monodepth2-style
 minimum over the reconstructing views, and median thresholding as a
 masked mean. The minimum is `torch.amin`, which shares the gradient among
 tied views as `jnp.min` does (`torch.min(dim)` would send it to one).
+
+With a process group of several ranks (data parallel training) each rank
+holds its rows of the global batch, and every mean over the batch, masked
+or not, takes the numerator and denominator of the whole global batch
+(`parallel.mesh.global_mean`); per-item statistics (the disparity's
+normalisation, the median threshold) stay per item. Every rank then
+holds the global loss and its terms; the reduction's gradient reaches
+each rank `world` times, which the trainer divides out.
 """
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ import math
 import torch
 
 from behindthescenes_tpu_torch.ops.ssim import ssim
+from behindthescenes_tpu_torch.parallel.mesh import all_reduce_sum, global_mean
 
 
 def compute_errors_l1ssim(img0, img1):
@@ -57,8 +66,9 @@ def edge_aware_smoothness(gt_img, depth):
             + torch.nn.functional.pad(d_dy, (0, 0, 0, 1)))
 
 
-def _masked_mean(x, keep_mask):
-    return torch.sum(x * keep_mask) / torch.clamp_min(keep_mask.sum(), 1.0)
+def _masked_mean(x, keep_mask, group=None):
+    return all_reduce_sum(torch.sum(x * keep_mask), group) \
+        / torch.clamp_min(all_reduce_sum(keep_mask.sum(), group), 1.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,7 +143,8 @@ class ReconstructionLoss:
                                device=invalid.device)
         raise NotImplementedError(self.invalid_policy)
 
-    def _rgb_loss(self, rgb_pred, rgb_gt_b, invalid_ray, thresh_gt=None):
+    def _rgb_loss(self, rgb_pred, rgb_gt_b, invalid_ray, thresh_gt=None,
+                  group=None):
         rl = self._crit(rgb_pred, rgb_gt_b)         # (n, pc, h, w, nv, c|1)
         rl = torch.amin(rl, dim=-2)                 # min over views
         if thresh_gt is not None:
@@ -143,13 +154,18 @@ class ReconstructionLoss:
         if self.median_thresholding:
             thr = torch.quantile(rl.reshape(rl.shape[0], -1), 0.5, dim=-1)
             keep = rl <= thr.reshape((-1,) + (1,) * (rl.ndim - 1))
-            return _masked_mean(rl, keep.to(rl.dtype))
-        return rl.mean()
+            return _masked_mean(rl, keep.to(rl.dtype), group)
+        return global_mean(rl, group)
 
-    def __call__(self, data):
+    def __call__(self, data, group=None):
         """data: "coarse" / "fine" per-scale lists of reconstructed render
-        dicts ((n, pc, h, w, ...)) and "rgb_gt" (n, pc, h, w, c). Returns
-        (total loss, dict of scalar terms)."""
+        dicts ((n, pc, h, w, ...)) and "rgb_gt" (n, pc, h, w, c); group:
+        the ranks whose rows make up the global batch (module docstring).
+        Returns (total loss, dict of scalar terms)."""
+
+        def mean(x):
+            return global_mean(x, group)
+
         n_scales = len(data["coarse"])
         coarse_0, fine_0 = data["coarse"][0], data["fine"][0]
         invalid_coarse = self._invalid_mask(coarse_0)
@@ -172,12 +188,12 @@ class ReconstructionLoss:
                     rgb_fine = rgb_fine[..., :-1]
             rgb_gt_b = rgb_gt[..., None, :]           # (n, pc, h, w, 1, c)
             rgb_loss = self._rgb_loss(rgb_coarse, rgb_gt_b, invalid_coarse,
-                                      thresh_gt)
+                                      thresh_gt, group)
             terms["loss_rgb_coarse"] = terms["loss_rgb_coarse"] \
                 + rgb_loss * self.lambda_coarse
             if len(fine) > 0:
                 fine_loss = self._rgb_loss(rgb_fine, rgb_gt_b, invalid_fine,
-                                           thresh_gt)
+                                           thresh_gt, group)
                 terms["loss_rgb_fine"] = terms["loss_rgb_fine"] \
                     + fine_loss * self.lambda_fine
                 rgb_loss = (rgb_loss * self.lambda_coarse
@@ -189,7 +205,7 @@ class ReconstructionLoss:
             if self.lambda_depth_reg > 0:
                 diffs_x = depths[:, :, 1:, :] - depths[:, :, :-1, :]
                 diffs_y = depths[:, :, :, 1:] - depths[:, :, :, :-1]
-                term = (diffs_x ** 2).mean() + (diffs_y ** 2).mean()
+                term = mean(diffs_x ** 2) + mean(diffs_y ** 2)
                 terms["loss_depth_reg"] = terms["loss_depth_reg"] + term
                 loss = loss + term * self.lambda_depth_reg
             if self.lambda_alpha_reg > 0:
@@ -208,7 +224,7 @@ class ReconstructionLoss:
                         / alpha_sum.shape[-1]
                 else:
                     raise ValueError(self.alpha_reg_reduction)
-                term = term.mean()
+                term = mean(term)
                 terms["loss_alpha_reg"] = terms["loss_alpha_reg"] + term
                 loss = loss + term * self.lambda_alpha_reg
             if self.lambda_surfaceness_reg > 0:
@@ -217,7 +233,7 @@ class ReconstructionLoss:
                                + torch.exp(-(1.0 - alphas).abs())).mean(-1)
                 if self.ignore_invalid:
                     p = p * valid
-                term = p.mean()
+                term = mean(p)
                 terms["loss_surfaceness_reg"] = \
                     terms["loss_surfaceness_reg"] + term
                 loss = loss + term * self.lambda_surfaceness_reg
@@ -231,14 +247,14 @@ class ReconstructionLoss:
                         inv = inv[..., _nearest_index(
                             l_map.shape[-1], inv.shape[-1], inv.device)]
                     l_map = l_map * (1.0 - torch.ceil(inv))
-                term = l_map.mean()
+                term = mean(l_map)
                 terms["loss_eas"] = terms["loss_eas"] + term
                 loss = loss + (term * self.lambda_edge_aware_smoothness
                                / (2 ** scale))
             if self.lambda_depth_smoothness > 0:
-                term = (((depths[..., :-1, :] - depths[..., 1:, :]) ** 2)
-                        .mean() + ((depths[..., :, :-1]
-                                    - depths[..., :, 1:]) ** 2).mean())
+                term = (mean((depths[..., :-1, :] - depths[..., 1:, :]) ** 2)
+                        + mean((depths[..., :, :-1]
+                                - depths[..., :, 1:]) ** 2))
                 terms["loss_depth_smoothness"] = \
                     terms["loss_depth_smoothness"] + term
                 loss = loss + term * self.lambda_depth_smoothness
@@ -252,7 +268,7 @@ class ReconstructionLoss:
                 / math.log2(alphas.shape[-1])
             ray_entropy = ray_entropy * (
                 1.0 - invalid_coarse[..., 0].to(ray_entropy.dtype))
-            loss_ray_entropy = ray_entropy.mean()
+            loss_ray_entropy = mean(ray_entropy)
         loss = loss + loss_ray_entropy * self.lambda_entropy
         loss_dict = {
             "loss_rgb_coarse": terms["loss_rgb_coarse"],
@@ -262,7 +278,7 @@ class ReconstructionLoss:
             "loss_alpha_reg": terms["loss_alpha_reg"],
             "loss_eas": terms["loss_eas"],
             "loss_depth_smoothness": terms["loss_depth_smoothness"],
-            "loss_invalid_ratio": invalid_coarse.float().mean(),
+            "loss_invalid_ratio": mean(invalid_coarse.float()),
             "loss": loss,
         }
         return loss, loss_dict

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from behindthescenes_tpu_torch.parallel.mesh import all_reduce_sum
+
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
     """`conv` with input and weights cast to the compute dtype. Below f32
@@ -40,9 +42,21 @@ class BatchNorm2d(nn.BatchNorm2d):
     running statistics. Train mode normalises with the batch mean and the
     BIASED batch variance, and moves the running statistics 10% toward
     them, the variance biased too (torch's own BatchNorm2d moves it toward
-    the unbiased variance)."""
+    the unbiased variance).
+
+    `group` (a process group, set by the trainer of several ranks): train
+    mode then takes the statistics of the global batch, as the JAX
+    package's sharded step does: the sums of x and x*x and the count are
+    all-reduced (the gradient flowing back through the reduction), so
+    every rank normalises by, and moves its running statistics toward,
+    the same E[x] and E[x^2] - E[x]^2. torch's SyncBatchNorm would move
+    the running variance toward the unbiased one. The sums accumulate in
+    float64, in one process too: E[x^2] - E[x]^2 cancels, and f32 sums
+    cut over ranks leave the statistics, and the gradients through them,
+    further from one rank's than the JAX multi-device tests allow."""
 
     FLAX_MOMENTUM = 0.9
+    group = None
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -53,8 +67,15 @@ class BatchNorm2d(nn.BatchNorm2d):
                                 self.weight, self.bias, False, 0.0, self.eps)
         # Flax's statistics: the mean, and the variance as E[x^2] - E[x]^2
         # (its use_fast_variance), which the gradient flows through.
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        c = x.shape[1]
+        f64 = torch.float64
+        sums = all_reduce_sum(torch.cat([
+            x.sum(dim=(0, 2, 3), dtype=f64),
+            (x * x).sum(dim=(0, 2, 3), dtype=f64),
+            x.new_full((1,), x.numel() // c, dtype=f64)]), self.group)
+        mean, ex2 = sums[:c] / sums[2 * c], sums[c:2 * c] / sums[2 * c]
+        var = torch.clamp_min(ex2 - mean * mean, 0.0).to(x.dtype)
+        mean = mean.to(x.dtype)
         with torch.no_grad():
             m = self.FLAX_MOMENTUM
             self.running_mean.mul_(m).add_((1 - m) * mean)

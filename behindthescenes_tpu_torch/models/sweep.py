@@ -23,6 +23,9 @@ at the weight-averaged source position) or "none" (depth only).
 
 Scope: one frame (n = 1) from one encoder view and one render view, the
 NVS serving workload (every frame rendered from the frame-0 encoding).
+Ranks of a process group share a frame's render-resolution rays where
+H * W divides among them (the warp lattice and the feature grid are whole
+on each).
 Training keeps the general query: stratified jitter breaks the shared
 ladder.
 """
@@ -38,6 +41,8 @@ from behindthescenes_tpu_torch.models.bts import EPS, BTSNet, FeatureGrid
 from behindthescenes_tpu_torch.ops.grid_sample import (
     grid_sample_2d, grid_sample_2d_packed, grid_sample_2d_xpair,
     resample_uniform_lattice)
+from behindthescenes_tpu_torch.parallel.mesh import (gather_tree, rank_world,
+                                                     row_share)
 
 
 def sweep_z_ladder(n_samples: int, z_near, z_far, lindisp: bool,
@@ -113,11 +118,14 @@ def _decode(net: BTSNet, mlp, feats, xy, z, dist):
 def sweep_block_density(net: BTSNet, grid: FeatureGrid, origin, dirs_full,
                         z_blk, full_hw, dirs_warp=None, warp_hw=None,
                         mlp_at_warp: bool = False, coarse: bool = True,
-                        scale: int = 0):
-    """Density logits of a block of P planes z_blk (P,). Returns (logits
-    (P, HW), invalid (P, HW) bool)."""
+                        scale: int = 0, rows=None):
+    """Density logits of a block of P planes z_blk (P,) along the rays
+    dirs_full, the pixels rows = (lo, hi) of the frame's flattened H x W
+    (default: all of them). Returns (logits (P, hi - lo), invalid (P,
+    hi - lo) bool)."""
     h, w = full_hw
-    hw = h * w
+    lo, hi = rows or (0, h * w)
+    hw = hi - lo
     p = z_blk.shape[0]
     mlp = net._mlp(coarse)
     pose_f = grid.f_poses_w2c[0, 0]
@@ -137,10 +145,10 @@ def sweep_block_density(net: BTSNet, grid: FeatureGrid, origin, dirs_full,
             # Decoded at the lattice; the logits resampled in f32.
             out = _decode(net, mlp, f_w, xy_w, z_w, dist_w)
             logit = _resample_batched(out.float().reshape(p, wh, ww, 1),
-                                      (h, w)).reshape(p, hw)
+                                      (h, w)).reshape(p, h * w)[:, lo:hi]
             return logit, inv_f[:, 0].reshape(p, hw)
-        feats = _resample_batched(f_w.reshape(p, wh, ww, c_l),
-                                  (h, w)).reshape(p * hw, c_l)
+        feats = _resample_batched(f_w.reshape(p, wh, ww, c_l), (h, w)) \
+            .reshape(p, h * w, c_l)[:, lo:hi].reshape(p * hw, c_l)
     else:
         feats = _fetch_features(grid, xy_f, scale)             # (P*HW, C)
     feats = _empty_where(net, feats, inv_f)
@@ -153,10 +161,11 @@ def query_sweep_density(net: BTSNet, grid: FeatureGrid, origin, dirs_full,
                         z_samp, full_hw, dirs_warp=None, warp_hw=None,
                         mlp_at_warp: bool = False, coarse: bool = True,
                         scale: int = 0,
-                        planes_per_step: Optional[int] = None):
+                        planes_per_step: Optional[int] = None, rows=None):
     """Density over a full frame, the shared ladder z_samp (K,) taken in
     blocks of `planes_per_step` planes (default 16 for the decode at the
-    warp lattice, 8 otherwise, lowered to a divisor of K).
+    warp lattice, 8 otherwise, lowered to a divisor of K); rows: the
+    pixels of dirs_full (`sweep_block_density`).
 
     Returns sigma (1, HW, K), invalid (1, HW, K) bool."""
     if grid.features[scale].shape[0] != 1:
@@ -171,7 +180,7 @@ def query_sweep_density(net: BTSNet, grid: FeatureGrid, origin, dirs_full,
     blocks = [sweep_block_density(
         net, grid, origin, dirs_full, z_blk, full_hw, dirs_warp=dirs_warp,
         warp_hw=warp_hw, mlp_at_warp=mlp_at_warp, coarse=coarse,
-        scale=scale) for z_blk in z_samp.reshape(k // p, p)]
+        scale=scale, rows=rows) for z_blk in z_samp.reshape(k // p, p)]
     logits = torch.cat([lg for lg, _ in blocks]).transpose(0, 1)[None]
     invalid = torch.cat([inv for _, inv in blocks]).transpose(0, 1)[None]
     sigma = net._density(logits)
@@ -253,21 +262,24 @@ def render_frame_sweep(net: BTSNet, grid: FeatureGrid, pose_c2w, proj, hw,
                        mlp_at_warp: bool = True, color_mode: str = "topm",
                        top_m: int = 8, z_near: Optional[float] = None,
                        z_far: Optional[float] = None,
-                       planes_per_step: Optional[int] = None, mesh=None):
+                       planes_per_step: Optional[int] = None, group=None):
     """One full novel-view frame in sweep mode.
 
     pose_c2w (4, 4) novel camera; proj (3, 3) NDC intrinsics; hw (H, W)
     render resolution. warp_scale: the warp lattice's resolution as a
     multiple of the feature map's (h, w) (None: the exact per-sample
     fetch). z_near / z_far: the ladder's bounds (default: the net's).
-    mesh: the JAX package's ray-sharding mesh, not ported (ROADMAP Queue A
-    item 5). Returns render_rays' dict {"coarse", "fine"}: rgb (1, HW, 3),
-    depth (1, HW), invalid (1, HW, K, 1), weights, alphas, z_samps."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "render_frame_sweep(mesh=...): ray sharding over several cards "
-            "is not ported (ROADMAP Queue A item 5)")
+    group: ranks that share the render-resolution rays, each its
+    contiguous H * W / world, where H * W divides (else every rank renders
+    the whole frame); every rank returns the whole frame. Returns
+    render_rays' dict {"coarse", "fine"}: rgb (1, HW, 3), depth (1, HW),
+    invalid (1, HW, K, 1), weights, alphas, z_samps."""
     h, w = hw
+    _, world = rank_world(group)
+    rows = None
+    if world > 1 and (h * w) % world == 0:
+        lo, hi, _ = row_share(h * w, group)
+        rows = (lo, hi)
     zn = net.z_near if z_near is None else z_near
     zf = net.z_far if z_far is None else z_far
     focal = torch.stack([proj[0, 0], proj[1, 1]])
@@ -275,6 +287,8 @@ def render_frame_sweep(net: BTSNet, grid: FeatureGrid, pose_c2w, proj, hw,
     rays = geometry.gen_rays(pose_c2w[None], w, h, zn, zf, focal=focal,
                              c=center)
     dirs_full = rays[0, ..., 3:6].reshape(h * w, 3)
+    if rows is not None:
+        dirs_full = dirs_full[rows[0]:rows[1]]
     origin = pose_c2w[:3, 3]
     z_samp = sweep_z_ladder(cfg.n_coarse, zn, zf, cfg.lindisp,
                             device=dirs_full.device)
@@ -291,7 +305,7 @@ def render_frame_sweep(net: BTSNet, grid: FeatureGrid, pose_c2w, proj, hw,
     sigma, invalid = query_sweep_density(
         net, grid, origin, dirs_full, z_samp, (h, w), dirs_warp=dirs_warp,
         warp_hw=warp_hw, mlp_at_warp=mlp_at_warp,
-        planes_per_step=planes_per_step)
+        planes_per_step=planes_per_step, rows=rows)
     z_b = z_samp.expand(sigma.shape)
     weights, alphas = renderer_lib.weights_from_sigma(sigma, z_b, cfg)
     depth = torch.sum(weights * z_b, -1)
@@ -300,4 +314,6 @@ def render_frame_sweep(net: BTSNet, grid: FeatureGrid, pose_c2w, proj, hw,
     out = {"rgb": rgb, "depth": depth,
            "invalid": (invalid | inv_c)[..., None].to(rgb.dtype),
            "weights": weights, "alphas": alphas, "z_samps": z_b}
+    if rows is not None:
+        out = gather_tree(out, h * w, 1, group)
     return {"coarse": out, "fine": dict(out)}

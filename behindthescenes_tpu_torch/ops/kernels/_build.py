@@ -10,6 +10,7 @@ import every module of the port on a machine without nvcc.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -91,6 +92,16 @@ def build() -> str:
         return out
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
+    # Ranks started together build once: the others wait on the lock and
+    # find the library.
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(out):
+            return out
+        return _compile(nvcc, out)
+
+
+def _compile(nvcc: str, out: str) -> str:
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
            *[s for s in sources() if s.endswith(".cu")]]

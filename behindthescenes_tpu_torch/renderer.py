@@ -18,6 +18,8 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from behindthescenes_tpu_torch.parallel import mesh
+
 
 @dataclasses.dataclass(frozen=True)
 class RendererConfig:
@@ -115,12 +117,15 @@ class FineDraws:
 
 
 def draw_fine(rays, cfg: RendererConfig,
-              generator: torch.Generator | None = None) -> FineDraws:
+              generator: torch.Generator | None = None,
+              n: int | None = None) -> FineDraws:
     """Every draw of the fine pass over rays (n, B, 8) at once, from
     `generator`: a chunked render then cuts them with its rays, and a
-    chunk that is re-run for the backward pass reads the same values."""
+    chunk that is re-run for the backward pass reads the same values.
+    n: the draws' leading size (default the rays'; a rank of several
+    draws the global batch's)."""
     n_imp = cfg.n_fine - cfg.n_fine_depth
-    shape = rays.shape[:-1]
+    shape = (rays.shape[0] if n is None else n,) + rays.shape[1:-1]
     return FineDraws(
         *(_draw(None, shape + (n_imp,), rays, generator) if n_imp > 0
           else None for _ in range(2)),
@@ -348,7 +353,7 @@ def render_rays_chunked(query_fn: Callable, rays, cfg: RendererConfig,
                         generator: torch.Generator | None = None,
                         z_jitter: torch.Tensor | None = None,
                         fine_draws: FineDraws | None = None,
-                        pad_last: bool = False, **want) -> dict:
+                        pad_last: bool = False, group=None, **want) -> dict:
     """Full-frame rendering as a loop over chunks of `ray_chunk` rays
     (the JAX package's `lax.map` over chunks, renderer.py:363-442), which
     bounds the memory of the per-sample tensors. remat_body re-runs each
@@ -359,8 +364,43 @@ def render_rays_chunked(query_fn: Callable, rays, cfg: RendererConfig,
     ray's bounds), for queries whose result depends on the chunk's every
     point (the tile fetch): each padded ray's samples all lie at the
     origin, whatever its draws. rays (n, B, 8); returns what render_rays
-    returns."""
+    returns.
+
+    The coarse jitter and the fine pass's draws that are not given are
+    drawn for the whole frame first, so that a frame reads the same values
+    however it is cut (with noise_std > 0 each chunk draws its own).
+    group: ranks that share the frame's rays (behindthescenes_tpu/
+    renderer.py:365-420): each renders its contiguous share of ceil(B /
+    world) rays in chunks of `ray_chunk` (rays per rank), the last share
+    padded with rays at the origin with the frame's last bounds, and
+    receives the others' outputs, so every rank returns the whole frame."""
     b = rays.shape[1]
+    if z_jitter is None and (b > ray_chunk or group is not None):
+        z_jitter = _draw(None, rays.shape[:-1] + (cfg.n_coarse,), rays,
+                         generator)
+    if cfg.using_fine and fine_draws is None and cfg.noise_std == 0.0 \
+            and (b > ray_chunk or group is not None):
+        fine_draws = draw_fine(rays, cfg, generator)
+    if group is not None:
+        if cfg.noise_std > 0.0:
+            raise ValueError("a frame shared by ranks needs noise_std == 0 "
+                             "(the noise is drawn per chunk)")
+
+        def last_bounds(x, pad):
+            fill = x.new_zeros((x.shape[0], pad, x.shape[2]))
+            fill[..., 6:8] = x[:, -1:, 6:8]
+            return fill
+
+        def share(t):
+            return None if t is None else mesh.shard_rows(t, 1, group)
+        out = render_rays_chunked(
+            query_fn, mesh.shard_rows(rays, 1, group, last_bounds), cfg,
+            ray_chunk, remat_body, generator, share(z_jitter),
+            None if fine_draws is None else FineDraws(
+                *(share(t) for t in (fine_draws.u, fine_draws.jitter,
+                                     fine_draws.normals))),
+            pad_last, **want)
+        return mesh.gather_tree(out, b, 1, group)
     pad = (-b) % ray_chunk if pad_last and b > ray_chunk else 0
     if pad:
         fill = torch.zeros_like(rays[:, :pad])

@@ -23,6 +23,16 @@ JAX package's `utils/io.load_params_npz` reads.
 
 Both compute in bf16 unless --f32, and run on the card unless --device
 says otherwise.
+
+    torchrun --nproc_per_node=N -m behindthescenes_tpu_torch.train -cn NAME
+
+trains data parallel over N ranks, one card each (NCCL; gloo with
+--device cpu): `batch_size` counts each rank's items, each rank's loader
+reads its `shard_for_host` of the training set, and the step computes
+the 1-rank step of the global batch (training/trainer.py). Without
+torchrun the JAX package's keys `coordinator_address`, `num_processes`
+and `process_id` (or `dist_init_method`) start the ranks. The short
+drive runs in one process.
 """
 from __future__ import annotations
 
@@ -36,6 +46,8 @@ from behindthescenes_tpu_torch.config import (find_config, load_config,
                                               parse_cli_overrides)
 from behindthescenes_tpu_torch.datasets.factory import make_datasets
 from behindthescenes_tpu_torch.datasets.loader import DataLoader
+from behindthescenes_tpu_torch.parallel.mesh import (backend_for,
+                                                     init_distributed)
 from behindthescenes_tpu_torch.training import tasks
 from behindthescenes_tpu_torch.training.trainer import BTSTrainer
 from behindthescenes_tpu_torch.weights import save_params_npz
@@ -103,6 +115,15 @@ def main(argv=None):
                            parse_cli_overrides(args.overrides))
         if args.f32:
             conf["bf16"] = False
+        rank, world = init_distributed(conf,
+                                       backend=backend_for(args.device))
+        if world > 1:
+            print(f"multi-host: process {rank}/{world}", flush=True)
+            # Each rank reads its own shard; everything the step holds the
+            # same on every rank (views, flip, draws, generator state)
+            # comes from the same seed, not a rank-seeded one.
+            conf["data"] = dict(conf.get("data", {}),
+                                host_shard=(rank, world))
         return run_task(conf, device=args.device)
     conf = config(args.config or "exp_synthetic_flagship", args.f32,
                   args.overrides)

@@ -15,6 +15,16 @@ BatchNorm statistics, Adam's state, the accumulated gradient and the
 counters), `<dir>/extra_<step>.json` the render scheduler, and the newest
 `max_to_keep` steps are kept. The JAX package's orbax step directories
 (`<step>/default/`) are not read.
+
+Under a trainer of several ranks (data parallel, `BTSTrainer.group`)
+every rank runs the loop on its own loader and restores the same
+checkpoint; rank 0 alone writes checkpoints, best steps and
+`best_value.json`, and alone visualises. A state holds no trace of the
+world size, so a run saved at one resumes at another. Validation sums
+each metric's (total, count) over the ranks before it divides, so every
+rank logs the same means, and a SIGTERM stops every rank at the same
+iteration (the flag is reduced where it is read: a stop that one rank
+alone saw would leave the others waiting in their next collective).
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from behindthescenes_tpu_torch.parallel.mesh import any_rank, barrier, sum_host
 from behindthescenes_tpu_torch.training.trainer import BTSTrainer
 
 log = logging.getLogger("bts_torch")
@@ -203,11 +214,12 @@ def _device_batches(loader, device, transfer_dtype=None):
         yield moved
 
 
-def _setup_logging():
+def _setup_logging(rank: int = 0, world: int = 1):
     if not log.handlers:
         handler = logging.StreamHandler()
+        tag = f" [rank {rank}/{world}]" if world > 1 else ""
         handler.setFormatter(logging.Formatter(
-            "%(asctime)s %(name)s %(message)s"))
+            f"%(asctime)s %(name)s{tag} %(message)s"))
         log.addHandler(handler)
         log.setLevel(logging.INFO)
         log.propagate = False
@@ -233,14 +245,15 @@ def base_training(config: dict, get_dataflow: Callable,
     """
     hc = HarnessConfig.from_conf(config)
     os.makedirs(hc.output_path, exist_ok=True)
-    _setup_logging()
+    trainer = trainer or BTSTrainer(config, device=device)
+    group, main = trainer.group, trainer.rank == 0
+    _setup_logging(trainer.rank, trainer.world)
     log.info("config: %s", json.dumps(
         {k: v for k, v in config.items() if not isinstance(v, dict)},
         default=str))
     if hc.debug_nans:
         torch.autograd.set_detect_anomaly(True)
 
-    trainer = trainer or BTSTrainer(config, device=device)
     train_loader, val_loader, vis_loader = get_dataflow(config)
     trainer.init_state()
     if mark:
@@ -284,12 +297,15 @@ def base_training(config: dict, get_dataflow: Callable,
             mark("restore")
 
     def save(target, step):
-        target.save(step, trainer,
-                    extra={"render_sched": trainer.scheduler.state_dict()})
+        if main:
+            target.save(step, trainer, extra={
+                "render_sched": trainer.scheduler.state_dict()})
+            log.info("checkpoint %d written to %s", step, target.directory)
 
     def finish(reason):
         if ckpt.latest_step() != it:  # don't save this step twice
             save(ckpt, it)
+        barrier(group)  # the last checkpoint is whole before any returns
         if prev_sigterm is not None:
             try:
                 signal.signal(signal.SIGTERM, prev_sigterm)
@@ -310,13 +326,14 @@ def base_training(config: dict, get_dataflow: Callable,
             val = metrics[hc.save_best_metric] * hc.save_best_sign
             if best_value is None or val > best_value:
                 best_value = val
-                best_ckpt.save(it, trainer)
+                save(best_ckpt, it)
                 try:
-                    with open(best_value_path, "w") as f:
-                        json.dump({"metric": hc.save_best_metric,
-                                   "signed_value": best_value,
-                                   "value": metrics[hc.save_best_metric],
-                                   "step": int(it)}, f)
+                    if main:
+                        with open(best_value_path, "w") as f:
+                            json.dump({"metric": hc.save_best_metric,
+                                       "signed_value": best_value,
+                                       "value": metrics[hc.save_best_metric],
+                                       "step": int(it)}, f)
                 except Exception:                   # noqa: BLE001
                     pass
                 log.info("new best %s=%.5f @ %d", hc.save_best_metric,
@@ -384,11 +401,11 @@ def base_training(config: dict, get_dataflow: Callable,
                     and it % hc.validate_every == 0):
                 validate_now()
 
-            if (vis_loader is not None and visualize is not None
+            if (main and vis_loader is not None and visualize is not None
                     and it % hc.visualize_every == 0):
                 visualize(trainer, vis_loader, it)
 
-            if _stop_requested:
+            if any_rank(_stop_requested, group):
                 return finish("SIGTERM")
             if hc.stop_iteration and it >= hc.stop_iteration:
                 return finish("stop_iteration")
@@ -401,12 +418,22 @@ def base_training(config: dict, get_dataflow: Callable,
     return finish("num_epochs reached")
 
 
+# The eval step's metrics (training/wrapper.py::compute_depth_metrics),
+# the names that ranks reduce in one order.
+VAL_METRICS = ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")
+
+
 def run_validation(trainer: BTSTrainer, val_loader) -> dict:
     """The means of the eval step's metrics over the validation set
     (reference utils/base_trainer.py:98-110), NaNs skipped. Every item
     draws from a generator seeded with 0, as the JAX harness evaluates
     every item with PRNGKey(0), so that validations of the same
-    parameters agree."""
+    parameters agree. Under a trainer of several ranks, each rank's
+    loader holds its share of the items, and each metric's total and
+    count are summed over the ranks before the divide
+    (behindthescenes_tpu/training/harness.py:395-445), so every rank
+    returns the same means."""
+    group = trainer.group
     metrics: dict[str, MeanMetric] = {}
     for batch in val_loader:
         gen = torch.Generator(device=trainer.device)
@@ -414,4 +441,19 @@ def run_validation(trainer: BTSTrainer, val_loader) -> dict:
         out = trainer.eval_step(batch, generator=gen)
         for k, v in out.get("metrics", {}).items():
             metrics.setdefault(k, MeanMetric()).update(float(v))
+    if group is not None:
+        unknown = set(metrics) - set(VAL_METRICS)
+        if unknown:
+            raise ValueError(f"metrics {sorted(unknown)} have no place in "
+                             "the ranks' reduction")
+        # (total, count, seen) of each name, summed over the ranks.
+        sums = sum_host([x for k in VAL_METRICS for x in (
+            (metrics[k].total, metrics[k].count, 1.0) if k in metrics
+            else (0.0, 0.0, 0.0))], group)
+        metrics = {}
+        for i, k in enumerate(VAL_METRICS):
+            total, count, seen = sums[3 * i:3 * i + 3]
+            if seen:
+                metrics[k] = MeanMetric()
+                metrics[k].total, metrics[k].count = total, int(count)
     return {k: m.compute() for k, m in metrics.items()}

@@ -7,7 +7,9 @@ import copy
 import os
 
 from behindthescenes_tpu_torch.datasets.factory import make_datasets
-from behindthescenes_tpu_torch.datasets.loader import DataLoader
+from behindthescenes_tpu_torch.datasets.loader import (DataLoader,
+                                                      shard_for_host,
+                                                      split_for_rank)
 from behindthescenes_tpu_torch.training.harness import base_training
 from behindthescenes_tpu_torch.training.trainer import BTSTrainer
 from behindthescenes_tpu_torch.training.visualize import make_tb_visualizer
@@ -18,12 +20,14 @@ def bts_get_dataflow(config):
     models/bts/trainer.py:359-392): the training set shuffled by the
     config's seed with the last partial batch dropped; the test set with
     `eval_frame_count` frames and depth, at most 256 items; its first
-    item for the visualisation."""
-    if config["data"].get("host_shard"):
-        raise NotImplementedError(
-            "per-host dataset shards (multi-GPU training) are not ported: "
-            "ROADMAP Queue A item 5")
+    item for the visualisation. With `data.host_shard` (rank, world) the
+    training loader reads the rank's `shard_for_host` (in place of
+    DistributedSampler) and the validation loader its share of the test
+    items, the shares covering every item."""
     train_ds, test_ds = make_datasets(config["data"])
+    host_shard = config["data"].get("host_shard")
+    if host_shard:
+        train_ds = shard_for_host(train_ds, *host_shard)
 
     test_ds = copy.copy(test_ds)
     if hasattr(test_ds, "frame_count"):
@@ -36,12 +40,13 @@ def bts_get_dataflow(config):
     vis_ds = copy.copy(test_ds)
     if hasattr(vis_ds, "length"):
         vis_ds.length = 1
+    val_ds = split_for_rank(test_ds, *host_shard) if host_shard else test_ds
 
     nw = config.get("num_workers", 2)
     train_loader = DataLoader(train_ds, batch_size=config["batch_size"],
                               shuffle=True, drop_last=True, num_workers=nw,
                               seed=config.get("seed", 0))
-    test_loader = DataLoader(test_ds, batch_size=1, num_workers=nw)
+    test_loader = DataLoader(val_ds, batch_size=1, num_workers=nw)
     vis_loader = DataLoader(vis_ds, batch_size=1, num_workers=0)
     return train_loader, test_loader, vis_loader
 
@@ -65,7 +70,8 @@ def bts_training(config, device=None, mark=None, on_iteration=None):
     (training/visualize.py, every `visualize_every` iterations) in
     TensorBoard where it is importable. Returns the trainer."""
     trainer = BTSTrainer(config, device=device)
-    writer = _tensorboard(config)
+    # Rank 0 alone writes the scalars and the grids.
+    writer = _tensorboard(config) if trainer.rank == 0 else None
     visualize = make_tb_visualizer(writer) if writer is not None else None
     log_tb_every = config.get("log_tb_train_every_iters", 50)
 

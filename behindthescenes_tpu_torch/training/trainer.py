@@ -16,6 +16,20 @@ the learning rate of the schedule at the count of applied updates.
 coarse MLP on the others (`_alternating_mask`): the frozen half's
 gradients are zeroed before Adam, so its moments decay as optax's do, and
 its update is dropped.
+
+Data parallel over the launcher's process group of several ranks:
+`batch_size` counts each rank's items and the global batch is their
+concatenation in rank order. BatchNorm and the loss take the global
+batch's statistics and means, the draws are the global
+batch's (training/wrapper.py), and after the backward pass one
+all-reduce sums the flattened gradient, each rank's loss scaled by 1 /
+world so that the sum is the global loss's gradient. The reduction runs
+once per micro-step, before the accumulation (the mean is linear). So
+every rank holds the same gradient, Adam steps identically everywhere,
+and the parameters stay the same on every rank without a broadcast. The
+gradient is reduced by hand, not by DistributedDataParallel: DDP's
+bucketed reductions run during the backward pass, beside the BatchNorm
+and loss reductions, whose order they would not keep across ranks.
 """
 from __future__ import annotations
 
@@ -25,12 +39,15 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from behindthescenes_tpu_torch import renderer as renderer_lib
 from behindthescenes_tpu_torch.import_torch import apply_pretrained_encoder
 from behindthescenes_tpu_torch.losses import ReconstructionLoss
 from behindthescenes_tpu_torch.models.bts import BTSNet
+from behindthescenes_tpu_torch.models.encoder import BatchNorm2d
+from behindthescenes_tpu_torch.parallel.mesh import default_group, rank_world
 from behindthescenes_tpu_torch.platform import resolve_device
 from behindthescenes_tpu_torch.training.schedule import make_lr_schedule
 from behindthescenes_tpu_torch.training.wrapper import (BTSWrapper, Draws,
@@ -106,16 +123,23 @@ def _as_batch(batch: dict, device) -> dict:
 class BTSTrainer:
     """Owns the net, the optimiser and the generators of one task config.
     Runs on the card unless `device` says otherwise. compute_dtype
-    defaults to bf16, the JAX trainer's default (config key bf16)."""
+    defaults to bf16, the JAX trainer's default (config key bf16). Its
+    data-parallel ranks are the launcher's default group where one of
+    several ranks is joined (module docstring)."""
 
     def __init__(self, config: dict, compute_dtype=None, device=None):
         self.config = config
         self.device = resolve_device(device)
+        self.group = default_group()
+        self.rank, self.world = rank_world(self.group)
         model_conf = config["model_conf"]
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if config.get("bf16", True) \
                 else torch.float32
         self.net = BTSNet.from_conf(model_conf, compute_dtype=compute_dtype)
+        for mod in self.net.modules():
+            if isinstance(mod, BatchNorm2d):
+                mod.group = self.group
         self.renderer_cfg = renderer_lib.RendererConfig.from_conf(
             config.get("renderer", {}))
         self.scheduler = renderer_lib.SampleScheduler(self.renderer_cfg)
@@ -206,11 +230,15 @@ class BTSTrainer:
         self.optimizer.zero_grad(set_to_none=True)
         data = self.wrapper.forward(batch, ids, train=True, renderer_cfg=cfg,
                                     draws=draws, generator=self.generator,
-                                    mark=mark)
-        loss, loss_dict = self.criterion(data)
+                                    mark=mark, group=self.group)
+        loss, loss_dict = self.criterion(data, self.group)
         if mark:
             mark("loss")
-        loss.backward()
+        if self.group is None:
+            loss.backward()
+        else:
+            (loss / self.world).backward()
+            self._reduce_grads()
         if mark:
             mark("backward")
         self._update()
@@ -218,6 +246,20 @@ class BTSTrainer:
             mark("optimizer")
         self.step += 1
         return {k: v.detach() for k, v in loss_dict.items()}
+
+    @torch.no_grad()
+    def _reduce_grads(self) -> None:
+        """Sum the gradients over the group in one flattened all-reduce
+        (every rank has the same parameters without a gradient)."""
+        grads = [p.grad for p in self.net.parameters() if p.grad is not None]
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.group)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
 
     @torch.no_grad()
     def _update(self) -> None:

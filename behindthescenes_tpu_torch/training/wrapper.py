@@ -6,7 +6,11 @@ models/bts/trainer.py:32-276).
 `forward(batch, ids, train, draws)` encodes, samples rays, renders and
 reconstructs. The step's random choices are a `Draws` record: the flip,
 the ray sampler's choices, the coarse jitter and the fine pass's draws.
-Each field left None is drawn from the generator passed in.
+Each field left None is drawn from the generator passed in; with a
+process group of several ranks (each holding its rows of the global
+batch) every rank draws the global batch's values from the same
+generator state and takes its rows, as each device of the JAX package's
+sharded step takes its slice of the global draws.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from behindthescenes_tpu_torch.losses import compute_errors_l1ssim
 from behindthescenes_tpu_torch.models.bts import BTSNet
 from behindthescenes_tpu_torch.models.image_processor import (
     RGBProcessor, make_image_processor)
+from behindthescenes_tpu_torch.parallel.mesh import rank_world
 from behindthescenes_tpu_torch.ray_sampler import (ImageRaySampler,
                                                    make_ray_sampler)
 from behindthescenes_tpu_torch.training.view_select import (ViewIds,
@@ -43,6 +48,18 @@ class Draws:
     rays: Any = None
     z_jitter: Optional[torch.Tensor] = None
     fine: Optional[renderer_lib.FineDraws] = None
+
+
+def draw_rows(draw, lo: int, hi: int):
+    """Rows lo..hi-1 of a draw: a tensor, or each field of a record of
+    draws (Draws, PatchDraws, FineDraws); other values (the flip, None)
+    as they are."""
+    if isinstance(draw, torch.Tensor):
+        return draw[lo:hi]
+    if dataclasses.is_dataclass(draw):
+        return type(draw)(**{f.name: draw_rows(getattr(draw, f.name), lo, hi)
+                             for f in dataclasses.fields(draw)})
+    return draw
 
 
 class BTSWrapper:
@@ -107,15 +124,17 @@ class BTSWrapper:
                 renderer_cfg: Optional[renderer_lib.RendererConfig] = None,
                 draws: Optional[Draws] = None,
                 generator: Optional[torch.Generator] = None,
-                mark: Optional[Callable[[str], None]] = None) -> dict:
+                mark: Optional[Callable[[str], None]] = None,
+                group=None) -> dict:
         """encode -> ray sampling -> render -> reconstruct.
 
         batch: {"imgs": (n, v, h, w, 3) in [-1, 1], "poses": (n, v, 4, 4)
         c2w, "projs": (n, v, 3, 3)} tensors on the net's device. In train
         mode BatchNorm uses batch statistics and moves its running
         statistics. mark(stage) is called after "encode" and "render".
-        Returns the data dict: coarse / fine per-scale lists, rgb_gt,
-        rays."""
+        group: the ranks whose batches join into the global batch, this
+        one's rows at rank * n (module docstring). Returns the data dict:
+        coarse / fine per-scale lists, rgb_gt, rays."""
         cfg = renderer_cfg or self.renderer_cfg
         draws = draws or Draws()
         net = self.net
@@ -146,17 +165,25 @@ class BTSWrapper:
             self.val_sampler, height=h, width=w)
         il = torch.as_tensor(np.asarray(ids.ids_loss, dtype=np.int64),
                              device=dev)
+        rank, world = rank_world(group)
+        lo, hi = rank * n, (rank + 1) * n
+        ray_draws = draws.rays
+        if ray_draws is None and world > 1 and hasattr(sampler, "draw"):
+            ray_draws = draw_rows(sampler.draw(
+                (n * world, len(il), h, w), generator, dev), lo, hi)
         all_rays, all_rgb_gt = sampler.sample(
-            images_ip[:, il], poses[:, il], projs[:, il], draws=draws.rays,
+            images_ip[:, il], poses[:, il], projs[:, il], draws=ray_draws,
             generator=generator)
         # One draw for every scale, as the JAX package's one k_render.
         z_jitter = draws.z_jitter
         if z_jitter is None:
-            z_jitter = torch.rand(all_rays.shape[:2] + (cfg.n_coarse,),
-                                  generator=generator, device=dev)
+            z_jitter = draw_rows(torch.rand(
+                (n * world,) + all_rays.shape[1:2] + (cfg.n_coarse,),
+                generator=generator, device=dev), lo, hi)
         fine_draws = draws.fine
         if cfg.using_fine and fine_draws is None:
-            fine_draws = renderer_lib.draw_fine(all_rays, cfg, generator)
+            fine_draws = draw_rows(renderer_lib.draw_fine(
+                all_rays, cfg, generator, n=n * world), lo, hi)
 
         data = dict(batch)
         data["coarse"], data["fine"] = [], []

@@ -471,6 +471,39 @@ DEMO_TIMED = 10
 _T0 = time.perf_counter()
 
 
+# Phase 24: multi-GPU on torch.distributed. PARALLEL_WORLD ranks started by
+# behindthescenes_tpu_torch.parallel.launch.run_ranks, over NCCL with a
+# card a rank where the machine has that many cards, else over gloo with
+# every rank on cuda:0 (NCCL refuses two ranks on one card). Each rank,
+# and this process at world 1, runs `parallel_work`: (a) phase 7's f32
+# flagship step on its rows of the batch and draws (the global batch is
+# phase 7's 4 items), then PARALLEL_TIMED bf16 steps, timed from
+# PARALLEL_TIMED_FROM (recorded only: ranks that share a card are no
+# scaling figure); (b) phase 9's general-path depth of the gate scenes and
+# the flagship NVS config, both in f32, per frame; (c) phase 14's LiDAR
+# runs on the gate drive. The ranks are held to world 1 within the CPU
+# tests' bounds (tests/test_torch_multidevice_*.py): the loss to 1e-6
+# relative; each gradient element to 1e-3 relative plus 1e-2 of its
+# leaf's max plus what a one-ulp scaling of the images moves world 1's
+# own gradient there; the BatchNorm statistics to 1e-6 of max(1, |s|)
+# (an f32 ulp of a running variance over 16 is 1.9e-6); the step's
+# parameters within 3 lr, under 5e-3 of them apart by more than 0.5 lr;
+# the ranks' parameters bit-equal; each frame's metrics to 1e-5 relative
+# (of max(1, |m|)); o_acc, ie_prec and ie_rec to 1e-4.
+PARALLEL_WORLD = 2
+PARALLEL_TIMEOUT = 600.0
+PARALLEL_TIMED = 10
+PARALLEL_TIMED_FROM = 2
+PARALLEL_NVS = ("eval_synthetic_flagship_nvs", ("bf16=false",))
+PARALLEL_LOSS_RTOL = 1e-6
+PARALLEL_GRAD_RTOL = 1e-3
+PARALLEL_GRAD_ATOL_OF_MAX = 1e-2
+PARALLEL_STATS_RTOL = 1e-6
+PARALLEL_METRIC_RTOL = 1e-5
+PARALLEL_OCC_ATOL = 1e-4
+PARALLEL_OCC_METRICS = ("o_acc", "ie_prec", "ie_rec")
+
+
 def log(phase: str, msg: str, t_phase: float) -> None:
     print(f"[chip_smoke] {phase}: {msg} ({time.perf_counter() - t_phase:.1f} s"
           f" phase, {time.perf_counter() - _T0:.1f} s total)", flush=True)
@@ -842,6 +875,16 @@ def cuda_clock():
         return ev
     clock.ms = lambda a, b: a.elapsed_time(b)
     clock.sync = torch.cuda.synchronize
+    return clock
+
+
+def host_clock():
+    """cuda_clock's interface on the host's clock (for a rank on the
+    CPU)."""
+    def clock():
+        return time.perf_counter()
+    clock.ms = lambda a, b: (b - a) * 1e3
+    clock.sync = lambda: None
     return clock
 
 
@@ -2451,6 +2494,258 @@ def demo_phase(dev, card: str, image_model=("kitti_raw", K360_WEIGHTS),
                  "gen_imgs": imgs_calls[0][1:]}
 
 
+def parallel_layout(world: int = PARALLEL_WORLD):
+    """(backend, each rank's device, what was chosen): NCCL over a card a
+    rank where there are enough cards, else gloo with every rank on
+    cuda:0."""
+    import torch
+    n = torch.cuda.device_count()
+    if n >= world:
+        return "nccl", [f"cuda:{r}" for r in range(world)], \
+            f"NCCL, one card a rank ({n} cards)"
+    return "gloo", ["cuda:0"] * world, \
+        (f"gloo, the {world} ranks share cuda:0 ({n} card; NCCL refuses "
+         "two ranks on one card, so its path is not run here)")
+
+
+def parallel_work(job: dict) -> dict:
+    """Phase 24's work (see PARALLEL_WORLD) on this process's rank of the
+    launcher's group, or at world 1 where none is joined, on
+    job["devices"][rank]. Returns the rank's results, tensors on the
+    host."""
+    import numpy as np
+    import torch
+    from behindthescenes_tpu_torch import eval_depth
+    from behindthescenes_tpu_torch.ops import kernels
+    from behindthescenes_tpu_torch.parallel import mesh
+    from behindthescenes_tpu_torch.training.wrapper import draw_rows
+    group = mesh.default_group()
+    rank, world = mesh.rank_world(group)
+    dev = job["devices"][rank]
+    conf, weights = job["conf"], job["weights"]
+    n = job["batch"]["imgs"].shape[0] // world
+    batch = mesh.shard_batch(job["batch"], group)
+    draws = draw_rows(job["draws"], rank * n, (rank + 1) * n)
+    out = {"rank": rank, "world": world, "device": dev}
+
+    # (a) the f32 step (and at world 1 the same step on images scaled by
+    # one ulp: the gradient's own sensitivity), then the bf16 steps.
+    scales = {"step": 1.0}
+    if world == 1:
+        scales["nudged"] = 1.0 + 2.0 ** -23
+    for name, scale in scales.items():
+        trainer = make_trainer(conf, weights, dev, torch.float32)
+        tb, td = on_device(dict(batch, imgs=batch["imgs"] * np.float32(scale)),
+                           draws, dev)
+        kernels.reset_launch_counts()
+        loss = float(trainer.train_step(tb, td)["loss"])
+        out[name] = {
+            "loss": loss, "launches": kernels.launch_counts(),
+            "grads": {k: p.grad.detach().cpu() for k, p in
+                      trainer.net.named_parameters() if p.grad is not None},
+            "state": {k: v.detach().cpu() for k, v in
+                      trainer.net.state_dict().items()}}
+        del trainer
+    bf16 = train_steps(conf, weights, batch, draws, dev, True,
+                       cuda_clock() if dev.startswith("cuda")
+                       else host_clock(), steps=job["timed"],
+                       timed_from=PARALLEL_TIMED_FROM)
+    out["bf16"] = {"median_ms": bf16["median_ms"], "losses": bf16["losses"]}
+
+    # (b) general-path depth and NVS, per frame, in f32.
+    net = eval_depth.load_model(job["depth_weights"], device=dev)
+    ev = eval_depth.DepthEvaluator(
+        net, eval_depth.FLAGSHIP_RENDERER,
+        dict(eval_depth.FLAGSHIP_MODEL_CONF, eval_selfview=False))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(eval_depth.SEED)
+    out["depth_sharded"] = ev.group is not None
+    out["depth"] = [ev.evaluate(b, generator=gen) for b in job["scenes"]]
+    del net, ev
+    name, checkpoint, overrides = job["nvs"]
+    _, _, calls = config_eval(name, checkpoint, dev, overrides)
+    out["nvs_sharded"] = all(e.group is not None for e, _, _ in calls)
+    out["nvs"] = [m for _, _, m in calls]
+
+    # (c) the LiDAR runs, the kernels' launches counted on this rank.
+    out["occupancy"] = []
+    for _, name, split, keyframes, overrides, record in job["occ_runs"]:
+        kernels.reset_launch_counts()
+        _, means, calls = config_eval(name, K360_WEIGHTS, dev, (
+            f"data.data_path={job['tree']}",
+            f"data.pose_path={os.path.join(job['tree'], 'data_poses')}",
+            f"data.split_path={os.path.join(job['tree'], split)}",
+            "data.is_preprocessed=true", *overrides, *job["occ_extra"]))
+        out["occupancy"].append({
+            "record": record, "keyframes": len(keyframes), "means": means,
+            "launches": kernels.launch_counts(),
+            "sharded": all(e.group is not None for e, _, _ in calls)})
+    if dev.startswith("cuda"):
+        torch.cuda.synchronize(dev)
+    return out
+
+
+def parallel_rank(rank: int, world: int, job: dict) -> dict:  # noqa: ARG001
+    """A rank's body for run_ranks."""
+    return parallel_work(job)
+
+
+def parallel_compare(one: dict, ranks: list, lr: float,
+                     count_launches: bool) -> dict:
+    """Holds every rank to world 1 (see PARALLEL_WORLD); raises where one
+    is outside. Returns the worst gaps."""
+    import math
+    import torch
+    gaps = {"loss_rel": 0.0, "grad_over_bound": 0.0,
+            "grad_rel_max_without_sensitivity": 0.0, "stats": 0.0,
+            "param_max_over_lr": 0.0, "param_moved_share": 0.0,
+            "depth_rel": 0.0, "nvs_rel": 0.0, "occupancy": 0.0}
+    base, nudged = one["step"], one["nudged"]
+    for r, res in enumerate(ranks):
+        got = res["step"]
+        rel = abs(got["loss"] - base["loss"]) / max(1.0, abs(base["loss"]))
+        gaps["loss_rel"] = max(gaps["loss_rel"], rel)
+        if not rel <= PARALLEL_LOSS_RTOL:
+            raise AssertionError(f"rank {r}: loss {got['loss']} vs world 1 "
+                                 f"{base['loss']}")
+        if set(got["grads"]) != set(base["grads"]):
+            raise AssertionError(f"rank {r}: gradients of other tensors")
+        for k, g1 in base["grads"].items():
+            g1 = g1.double()
+            diff = (got["grads"][k].double() - g1).abs()
+            top = g1.abs().max().item()
+            plain = PARALLEL_GRAD_RTOL * g1.abs() \
+                + PARALLEL_GRAD_ATOL_OF_MAX * top
+            bound = plain + (nudged["grads"][k].double() - g1).abs() + 1e-30
+            gaps["grad_over_bound"] = max(gaps["grad_over_bound"],
+                                          (diff / bound).max().item())
+            if top > 0:
+                gaps["grad_rel_max_without_sensitivity"] = max(
+                    gaps["grad_rel_max_without_sensitivity"],
+                    (diff - PARALLEL_GRAD_RTOL * g1.abs()).max().item()
+                    / top)
+            if not bool((diff <= bound).all()):
+                raise AssertionError(f"rank {r}: gradient of {k} outside "
+                                     "its bound")
+        total = moved = 0
+        for k, v in base["state"].items():
+            w = got["state"][k]
+            if "running_" in k:
+                d = ((w.double() - v.double()).abs()
+                     / v.double().abs().clamp_min(1.0)).max().item()
+                gaps["stats"] = max(gaps["stats"], d)
+                if not d <= PARALLEL_STATS_RTOL:
+                    raise AssertionError(f"rank {r}: {k} {d:.3e} from "
+                                         "world 1")
+            elif k in base["grads"]:
+                d = (w.double() - v.double()).abs()
+                total += d.numel()
+                moved += int((d > 0.5 * lr).sum())
+                gaps["param_max_over_lr"] = max(gaps["param_max_over_lr"],
+                                                d.max().item() / lr)
+        gaps["param_moved_share"] = max(gaps["param_moved_share"],
+                                        moved / total)
+        if not (gaps["param_max_over_lr"] < 3
+                and gaps["param_moved_share"] < 5e-3):
+            raise AssertionError(f"rank {r}: the step's parameters "
+                                 f"{gaps['param_max_over_lr']:.3f} lr and "
+                                 f"{gaps['param_moved_share']:.2e} moved "
+                                 "from world 1")
+        for k, v in ranks[0]["step"]["state"].items():
+            if not torch.equal(v, got["state"][k]):
+                raise AssertionError(f"rank {r}: {k} differs from rank 0")
+        for part in ("depth", "nvs"):
+            if not res[f"{part}_sharded"]:
+                raise AssertionError(f"rank {r}: {part} was not sharded")
+            if len(res[part]) != len(one[part]):
+                raise AssertionError(f"rank {r}: {part} frames")
+            for i, (a, b) in enumerate(zip(res[part], one[part])):
+                for k, want in b.items():
+                    rel = abs(a[k] - want) / max(1.0, abs(want))
+                    gaps[f"{part}_rel"] = max(gaps[f"{part}_rel"], rel)
+                    if not rel <= PARALLEL_METRIC_RTOL:
+                        raise AssertionError(
+                            f"rank {r}: {part} frame {i} {k} {a[k]} vs "
+                            f"world 1 {want}")
+        for occ, occ1 in zip(res["occupancy"], one["occupancy"]):
+            if not occ["sharded"]:
+                raise AssertionError(f"rank {r}: {occ['record']} query "
+                                     "was not sharded")
+            for k in PARALLEL_OCC_METRICS:
+                d = abs(occ["means"][k] - occ1["means"][k])
+                gaps["occupancy"] = max(gaps["occupancy"], d)
+                if not (math.isfinite(d) and d <= PARALLEL_OCC_ATOL):
+                    raise AssertionError(
+                        f"rank {r}: {occ['record']} {k} "
+                        f"{occ['means'][k]} vs world 1 {occ1['means'][k]}")
+            kernel = OCC_RECORDS[occ["record"]]
+            want = {k: occ["keyframes"] if k == kernel else 0
+                    for k in occ["launches"]}
+            if count_launches and occ["launches"] != want:
+                raise AssertionError(f"rank {r}: {occ['record']} launches "
+                                     f"{occ['launches']}, want {want}")
+        if count_launches and any(got["launches"].values()):
+            raise AssertionError(f"rank {r}: the train step launched "
+                                 f"decode kernels: {got['launches']}")
+    return gaps
+
+
+def parallel_phase(dev, card: str, conf: dict, weights: str,
+                   batch: dict, draws, scenes, tree: str,
+                   depth_weights: str = WEIGHTS, nvs=(PARALLEL_NVS[0], WEIGHTS,
+                                                      PARALLEL_NVS[1]),
+                   occ_runs=None, occ_extra=(), layout=None,
+                   timed: int = PARALLEL_TIMED,
+                   count_launches: bool = True, threads=None) -> dict:
+    """Phase 24 (see PARALLEL_WORLD): parallel_work at world 1 on `dev`,
+    then on PARALLEL_WORLD ranks laid out by `layout` (backend, devices,
+    what; default `parallel_layout()`), each held to world 1 by
+    parallel_compare, printing the backend, the world size, the card
+    count, the gaps, the timings and each rank's launches beside the
+    card. threads: each rank's intra-op threads (None: torch's default).
+    Raises where a rank fails or disagrees. Returns the phase's record."""
+    import torch
+    from behindthescenes_tpu_torch.parallel.launch import run_ranks
+    t = time.perf_counter()
+    backend, devices, what = layout or parallel_layout()
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    print(f"[chip_smoke] phase 24 backend {backend}, world "
+          f"{PARALLEL_WORLD}, cuda device count {cards}: {what}",
+          flush=True)
+    job = {"conf": conf, "weights": weights, "batch": batch, "draws": draws,
+           "scenes": scenes, "tree": tree, "depth_weights": depth_weights,
+           "nvs": nvs, "occ_runs": occ_runs or OCC_RUNS[:2],
+           "occ_extra": tuple(occ_extra), "timed": timed}
+    one = parallel_work(dict(job, devices=[str(dev)]))
+    log("phase 24 world 1", f"on {dev}", t)
+    t = time.perf_counter()
+    ranks = run_ranks(parallel_rank, PARALLEL_WORLD,
+                      (dict(job, devices=devices),), backend=backend,
+                      timeout=PARALLEL_TIMEOUT, threads=threads)
+    log(f"phase 24 world {PARALLEL_WORLD}", f"{backend} on {devices}", t)
+    gaps = parallel_compare(one, ranks, conf.get("learning_rate", 1e-4),
+                            count_launches)
+    med = {"world 1": one["bf16"]["median_ms"]} | {
+        f"world {PARALLEL_WORLD} rank {r}": res["bf16"]["median_ms"]
+        for r, res in enumerate(ranks)}
+    print(f"[chip_smoke] phase 24 ({card}): world {PARALLEL_WORLD} against "
+          "world 1 (" + backend + "): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in gaps.items())
+          + f"; bf16 step and stage median ms (steps {PARALLEL_TIMED_FROM}"
+          f"-{timed - 1}, recorded only) " + json.dumps(
+              {k: {s: round(v, 3) for s, v in m.items()}
+               for k, m in med.items()})
+          + "; LiDAR launches per rank " + json.dumps(
+              [[o["launches"] for o in res["occupancy"]] for res in ranks]),
+          flush=True)
+    return {"backend": backend, "world": PARALLEL_WORLD,
+            "device_count": cards, "devices": devices, "gaps": gaps,
+            "bf16_step_ms": med,
+            "occupancy_means": [o["means"] for o in one["occupancy"]],
+            "launches_per_rank": [[o["launches"] for o in res["occupancy"]]
+                                  for res in ranks]}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2657,20 +2952,22 @@ def main() -> None:
     # -- 14, 15: KITTI-360 occupancy on the gate drive ---------------------
     from behindthescenes_tpu_torch.datasets.gen_synthetic_kitti_360 import \
         GATE_FRAMES, make_gate_tree
-    with tempfile.TemporaryDirectory(prefix="k360_gate_") as tree:
-        t = time.perf_counter()
-        make_gate_tree(tree)
-        write_occupancy_splits(tree, GATE_FRAMES)
-        log("phase 14 tree", "the occupancy gate's drive generated and "
-            "preprocessed on the host", t)
-        occupancy = occupancy_phases(tree, dev, card, cuda_clock)
+    # The drive lives until phase 24 has read it too.
+    k360_tree = tempfile.TemporaryDirectory(prefix="k360_gate_")
+    tree = k360_tree.name
+    t = time.perf_counter()
+    make_gate_tree(tree)
+    write_occupancy_splits(tree, GATE_FRAMES)
+    log("phase 14 tree", "the occupancy gate's drive generated and "
+        "preprocessed on the host", t)
+    occupancy = occupancy_phases(tree, dev, card, cuda_clock)
 
-        # -- 16: the exp_kitti_360 training run on the same drive ----------
-        t = time.perf_counter()
-        k360_run = k360_training_phase(tree, dev, card, cuda_clock)
-        print_k360_run(k360_run, card)
-        log("phase 16 exp_kitti_360 run", "checkpoints, best, resume and "
-            "validation as the JAX harness's; no decode kernel", t)
+    # -- 16: the exp_kitti_360 training run on the same drive --------------
+    t = time.perf_counter()
+    k360_run = k360_training_phase(tree, dev, card, cuda_clock)
+    print_k360_run(k360_run, card)
+    log("phase 16 exp_kitti_360 run", "checkpoints, best, resume and "
+        "validation as the JAX harness's; no decode kernel", t)
     t = time.perf_counter()
     for res, (kernel, args, kwargs) in occupancy:
         records.append(kernel_record(
@@ -2734,6 +3031,14 @@ def main() -> None:
             max(demos["max_abs_err"]), mode, found[0]))
     log("phase 23 kernel timing", f"the demos' kernel, {card}", t)
 
+    # -- 24: two ranks on torch.distributed against one --------------------
+    t = time.perf_counter()
+    parallel = parallel_phase(dev, card, conf, WEIGHTS, batch, draws,
+                              batches, tree)
+    k360_tree.cleanup()
+    log("phase 24 multi-GPU", f"world {PARALLEL_WORLD} ({parallel['backend']}"
+        ") within its bounds of world 1", t)
+
     print(json.dumps({"frame_ms": frame_ms, "encode_ms": encode_ms,
                       "serving": serving, "general_path": general["means"],
                       "train_parity": parity, "training": training,
@@ -2741,7 +3046,8 @@ def main() -> None:
                       "occupancy": [res for res, _ in occupancy],
                       "k360_training": k360_run, "fast_training": fast,
                       "disk_benchmarks": disk, "sweep": sweep_res,
-                      "tile_fetch": tile_res, "demos": demos}),
+                      "tile_fetch": tile_res, "demos": demos,
+                      "parallel": parallel}),
           flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)

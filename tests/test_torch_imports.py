@@ -42,6 +42,8 @@ names = [pkg.__name__] + [m.name for m in pkgutil.walk_packages(
     pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+assert {{"behindthescenes_tpu_torch.parallel.mesh",
+        "behindthescenes_tpu_torch.parallel.launch"}} <= set(names), names
 spec = importlib.util.spec_from_file_location("chip_smoke",
                                               {root!r} + "/chip_smoke.py")
 smoke = importlib.util.module_from_spec(spec)
@@ -59,6 +61,31 @@ def test_port_imports_with_jax_family_blocked():
                           text=True, cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+
+
+_PARALLEL_PROBE = _PROBE.split("import behindthescenes_tpu_torch as pkg")[0] \
+    + r"""
+import behindthescenes_tpu_torch.parallel.launch as launch
+import behindthescenes_tpu_torch.parallel.mesh as mesh
+import behindthescenes_tpu_torch.platform as platform
+assert mesh.default_group() is None and mesh.eval_group() is None
+assert mesh.init_distributed({{}}) == (0, 1)
+platform.multihost_barrier()
+assert callable(launch.run_ranks)
+leaked = sorted(m for m in sys.modules if _blocked(m))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_parallel_imports_with_jax_family_blocked():
+    """The multi-rank package alone (what a torchrun rank loads first),
+    with its single-process paths run: no group, no rendezvous."""
+    code = _PARALLEL_PROBE.format(blocked=BLOCKED, root=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
 def _sources():

@@ -272,7 +272,12 @@ def test_nvs_evaluator_sweep_matches_jax(case):
 
 
 def test_mesh_argument_raises(f32):
-    """Ray sharding over several cards is not ported: a mesh raises and
-    names its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="item 5"):
+    """The JAX package's `mesh` has no counterpart in the port: its ranks
+    share a frame's rays over a process group (`group`, held to one rank
+    in tests/test_torch_multidevice_eval.py), so a mesh raises, and
+    group=None renders what the default renders."""
+    with pytest.raises(TypeError, match="mesh"):
         f32.port(mesh=object())
+    whole, none = f32.port(), f32.port(group=None)
+    for k in whole:
+        np.testing.assert_array_equal(none[k], whole[k], err_msg=k)
