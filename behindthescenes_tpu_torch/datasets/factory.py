@@ -1,8 +1,7 @@
 """Dataset factory (counterpart of behindthescenes_tpu/datasets/factory.py:
 12-60): the Synthetic type, over the port's copy of the synthetic scenes,
-KITTI_Raw (`datasets/kitti_raw.py`), KITTI_360 (`datasets/kitti_360.py`)
-and RealEstate10k (`datasets/realestate10k.py`). The other disk datasets
-(KITTI_Odometry, Waymo, NYU_Depth_V2) wait for ROADMAP Queue A item 7."""
+and the disk datasets KITTI_Raw, KITTI_360, RealEstate10k,
+KITTI_Odometry, Waymo and NYU_Depth_V2 (a test set only)."""
 from __future__ import annotations
 
 from behindthescenes_tpu_torch.datasets import synthetic
@@ -26,9 +25,19 @@ def make_datasets(data_conf: dict):
         from behindthescenes_tpu_torch.datasets.realestate10k import (
             RealEstate10kDataset)
         return RealEstate10kDataset.make_train_test(data_conf)
+    if dtype == "KITTI_Odometry":
+        from behindthescenes_tpu_torch.datasets.kitti_odom import (
+            KittiOdometryDataset)
+        return KittiOdometryDataset.make_train_test(data_conf)
+    if dtype == "Waymo":
+        from behindthescenes_tpu_torch.datasets.waymo import WaymoDataset
+        return WaymoDataset.make_train_test(data_conf)
+    if dtype == "NYU_Depth_V2":
+        from behindthescenes_tpu_torch.datasets.nyu_depth_v2 import (
+            NYUDepthV2Dataset)
+        return None, NYUDepthV2Dataset.make_test(data_conf)
     if dtype != "Synthetic":
-        raise NotImplementedError(
-            f"dataset type {dtype!r} is not ported: ROADMAP Queue A item 7")
+        raise NotImplementedError(f"Unsupported dataset type: {dtype}")
     h, w = data_conf.get("image_size", (48, 64))
     fc = data_conf.get("data_fc", 2)
     length = data_conf.get("length", 64)

@@ -5,6 +5,7 @@ over in order.
 """
 from __future__ import annotations
 
+import hashlib
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
@@ -122,3 +123,15 @@ def split_for_rank(dataset, rank: int, world: int):
     ranks' shares disjoint and covering every item (17 items over 2 ranks
     give 9 and 8)."""
     return _Strided(dataset, rank, world, cover=True)
+
+
+def item_digest(item: dict) -> str:
+    """SHA-256 of a data item: each key in sorted order with its array's
+    dtype, shape and bytes. Two loaders that give bit-equal items give
+    equal digests (the JAX loader's items hash the same way)."""
+    h = hashlib.sha256()
+    for key in sorted(item):
+        arr = np.ascontiguousarray(item[key])
+        h.update(f"{key}|{arr.dtype.str}|{arr.shape}|".encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()

@@ -12,6 +12,11 @@ here (no JAX counterpart; the JAX package calls cv2):
   half-pixel centres, edge clamp, no antialias when shrinking, the
   weights in float32 (OpenCV's fixed point applies to 8-bit images only)
   and each pass a fused lerp;
+- `resize_linear_u8` is `cv2.resize(..., INTER_LINEAR)` on uint8 images,
+  in OpenCV's fixed point (11-bit weights and its vertical pass's
+  truncations);
+- `read_png_color` reads as `cv2.imread(path)` (IMREAD_COLOR) does: three
+  8-bit channels, grey replicated, 16-bit samples cut to their high byte;
 - `resize_nearest` is `cv2.resize(..., INTER_NEAREST)`: the source index
   of a destination index d is floor(d * src / dst), clamped (not the
   pixel centre).
@@ -116,6 +121,16 @@ def read_png(path) -> np.ndarray:
     return img.reshape(h, w) if channels == 1 else img.reshape(h, w, 3)
 
 
+def read_png_color(path) -> np.ndarray:
+    """`cv2.imread(path)` of a PNG with its channels in RGB order: uint8
+    (h, w, 3); grey is replicated to three channels and a 16-bit sample
+    keeps its high byte (libpng's strip_16)."""
+    img = read_png(path)
+    if img.dtype == np.uint16:
+        img = (img >> 8).astype(np.uint8)
+    return np.repeat(img[..., None], 3, axis=2) if img.ndim == 2 else img
+
+
 def _chunk(kind: bytes, body: bytes) -> bytes:
     return (struct.pack(">I", len(body)) + kind + body
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
@@ -171,13 +186,56 @@ def resize_linear(img: np.ndarray, size) -> np.ndarray:
     img = np.asarray(img)
     if img.dtype != np.float32:
         raise ValueError("resize_linear takes float32 images (OpenCV "
-                         "rounds 8-bit ones in fixed point)")
+                         "rounds 8-bit ones in fixed point: "
+                         "resize_linear_u8)")
     h, w = size
     x0, x1, wx = _linear_taps(w, img.shape[1])
     y0, y1, wy = _linear_taps(h, img.shape[0])
     extra = (None,) * (img.ndim - 2)
     rows = _lerp(img[:, x0], img[:, x1], wx[(None, slice(None)) + extra])
     return _lerp(rows[y0], rows[y1], wy[(slice(None), None) + extra])
+
+
+def _linear_taps_u8(dst: int, src: int, clamp: bool):
+    """OpenCV's INTER_LINEAR taps of 8-bit images along one axis: (i0, i1,
+    w0, w1) with the weights in 11-bit fixed point, each rounded from
+    float32. The position is rounded to float32 too; columns (`clamp`)
+    take weights (2048, 0) outside [0, src - 1], rows keep theirs and
+    clamp only the two source indices."""
+    f = ((np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5) \
+        .astype(np.float32)
+    i0 = np.floor(f).astype(np.int64)
+    frac = (f - i0.astype(np.float32)).astype(np.float32)
+    if clamp:
+        edge = (i0 < 0) | (i0 >= src - 1)
+        frac[edge] = 0
+        i0 = np.clip(i0, 0, src - 1)
+    w0 = np.rint((np.float32(1) - frac) * np.float32(2048)).astype(np.int64)
+    w1 = np.rint(frac * np.float32(2048)).astype(np.int64)
+    return np.clip(i0, 0, src - 1), np.clip(i0 + 1, 0, src - 1), w0, w1
+
+
+def resize_linear_u8(img: np.ndarray, size) -> np.ndarray:
+    """cv2.resize(img, (w, h), interpolation=INTER_LINEAR) of a uint8
+    image (h0, w0[, c]) to size = (h, w), bit-equal: each row in exact
+    integers (pixel x 11-bit weight), then each column as OpenCV's
+    vector path computes it, ((row >> 4) * weight) >> 16 for each of the
+    two rows, summed, then (sum + 2) >> 2."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"resize_linear_u8 takes uint8 images, not "
+                         f"{img.dtype}")
+    h, w = size
+    x0, x1, a0, a1 = _linear_taps_u8(w, img.shape[1], True)
+    y0, y1, b0, b1 = _linear_taps_u8(h, img.shape[0], False)
+    extra = (None,) * (img.ndim - 2)
+    along_x = (None, slice(None)) + extra
+    along_y = (slice(None), None) + extra
+    src = img.astype(np.int64)
+    rows = src[:, x0] * a0[along_x] + src[:, x1] * a1[along_x]
+    out = (((rows[y0] >> 4) * b0[along_y]) >> 16) \
+        + (((rows[y1] >> 4) * b1[along_y]) >> 16)
+    return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
 
 
 def _nearest_index(dst: int, src: int) -> np.ndarray:

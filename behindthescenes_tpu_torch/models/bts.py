@@ -23,7 +23,8 @@ import torch
 from torch import nn
 
 from behindthescenes_tpu_torch import geometry
-from behindthescenes_tpu_torch.models.encoder import make_backbone
+from behindthescenes_tpu_torch.models.encoder import (ImageEncoder,
+                                                      make_backbone)
 from behindthescenes_tpu_torch.models.mlp import ResnetFC, make_mlp
 from behindthescenes_tpu_torch.ops.grid_sample import (
     grid_sample_2d, grid_sample_2d_packed, grid_sample_2d_tiles,
@@ -121,7 +122,10 @@ def _linspace(n: int, dtype, device) -> torch.Tensor:
     """linspace(-1, 1, n) rounded in `dtype` as jnp.linspace rounds it
     (each operation in `dtype`). In bf16 torch.linspace differs from it
     by up to 1.2e-2 at n = 640, which the x/y code's top octave (48 rad
-    per unit) turns into a different static input."""
+    per unit) turns into a different static input. One point is -1, as
+    jnp.linspace's start."""
+    if n == 1:
+        return torch.full((1,), -1.0, dtype=dtype, device=device)
     div = torch.tensor(n - 1, dtype=dtype, device=device)
     step = torch.arange(n - 1, dtype=dtype, device=device) / div
     return torch.cat([-(1 - step) + step,
@@ -191,6 +195,13 @@ class BTSNet(nn.Module):
         self.compute_dtype = compute_dtype
         self.learn_empty = learn_empty
         self.encoder = make_backbone(dict(encoder_conf), compute_dtype)
+        if isinstance(self.encoder, ImageEncoder):
+            # Its (n, latent) output has no pixels to sample: the JAX
+            # package's encode fails on it too (the flip of each latent's
+            # width axis, behindthescenes_tpu/models/bts.py:237).
+            raise ValueError("encoder type 'global' gives one latent vector "
+                             "an image, and BTSNet samples a pixel-aligned "
+                             "feature map: use monodepth2 or spatial")
         self.code_xyz = PositionalEncoding.from_conf(dict(code_conf), d_in=3)
         d_in = self.encoder.latent_size + self.code_xyz.d_out
         d_out = 1 if sample_color else 4

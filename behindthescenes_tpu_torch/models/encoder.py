@@ -1,7 +1,8 @@
-"""Image encoder emitting pixel-aligned feature maps (counterpart of
-behindthescenes_tpu/models/encoder.py:25-256, 348).
+"""Image encoders (counterpart of behindthescenes_tpu/models/encoder.py).
 
-ResNet-18/34/50 with the monodepth2 U-Net decoder. Module and parameter
+ResNet-18/34/50 with the monodepth2 U-Net decoder; pixelNeRF's
+`SpatialEncoder` (the first ResNet stages repeated to stride 2 and
+concatenated) and the global `ImageEncoder` (one latent vector an image). Module and parameter
 names follow the reference's torch modules (torchvision's ResNet inside
 `ResnetEncoder.encoder`, the decoder's `nn.ModuleList` of conv blocks), so
 the port's state_dict keys are the reference checkpoints' keys. Tensors
@@ -267,6 +268,10 @@ class Decoder(nn.Module):
         return outputs
 
 
+def _f32_or_wider(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 class Monodepth2(nn.Module):
     """ResNet encoder + U-Net decoder (reference monodepth2.py:242-302).
     Input images in [-1, 1], NCHW; returns per-scale f32 latents."""
@@ -287,14 +292,58 @@ class Monodepth2(nn.Module):
 
     def forward(self, x):
         outputs = self.decoder(self.encoder(x * 0.5 + 0.5))
-        latents = [outputs[i].to(torch.promote_types(outputs[i].dtype,
-                                                     torch.float32))
-                   for i in self.scales]
+        latents = [_f32_or_wider(outputs[i]) for i in self.scales]
         if self.freeze:
             # The gradient stops at the backbone's output, as in the JAX
             # package (its BatchNorm statistics still move in train mode).
             latents = [lat.detach() for lat in latents]
         return latents
+
+
+class SpatialEncoder(nn.Module):
+    """pixelNeRF's multi-layer latents (behindthescenes_tpu/models/
+    encoder.py:258-289; reference spatial_encoder.py:16-157): the first
+    `num_layers` of the ResNet's feature maps (the stem at stride 2, then
+    layer1...), each repeated by nearest neighbour to the stem's size and
+    cropped to it, concatenated along the channels. Input in [-1, 1],
+    NCHW; returns [the (n, latent_size, h / 2, w / 2) map in f32]."""
+
+    def __init__(self, resnet_layers: int = 34, num_layers: int = 4,
+                 compute_dtype=torch.float32):
+        super().__init__()
+        self.num_layers = num_layers
+        self.latent_size = sum(_RESNET_SPECS[resnet_layers][2][:num_layers])
+        self.scales = (0,)
+        self.encoder = ResnetEncoder(resnet_layers, compute_dtype)
+
+    def forward(self, x):
+        feats = self.encoder(x * 0.5 + 0.5)
+        th, tw = feats[0].shape[2:]
+        latents = []
+        for f in feats[:self.num_layers]:
+            up = f.repeat_interleave(th // f.shape[2], dim=2) \
+                .repeat_interleave(tw // f.shape[3], dim=3)
+            latents.append(up[:, :, :th, :tw])
+        return [_f32_or_wider(torch.cat(latents, dim=1))]
+
+
+class ImageEncoder(nn.Module):
+    """One latent vector an image (behindthescenes_tpu/models/encoder.py:
+    292-313; reference image_encoder.py:14-67): the mean of the ResNet's
+    last feature map, then the dense layer `fc`, in f32. Input in [-1, 1],
+    NCHW; returns [(n, latent_size)]."""
+
+    def __init__(self, resnet_layers: int = 34, latent_dim: int = 128,
+                 compute_dtype=torch.float32):
+        super().__init__()
+        self.latent_size = latent_dim
+        self.scales = (0,)
+        self.encoder = ResnetEncoder(resnet_layers, compute_dtype)
+        self.fc = nn.Linear(self.encoder.num_ch_enc[-1], latent_dim)
+
+    def forward(self, x):
+        pooled = self.encoder(x * 0.5 + 0.5)[-1].mean(dim=(2, 3))
+        return [_f32_or_wider(self.fc(pooled.to(self.fc.weight.dtype)))]
 
 
 class EncoderDummy(nn.Module):
@@ -317,25 +366,34 @@ _BACKBONE_KEYS = {
     "monodepth2": {"type", "remat", "resnet_layers", "num_ch_dec", "d_out",
                    "scales", "pretrained", "pretrained_strict", "freeze",
                    "cp_location"},
+    "spatial": {"type", "resnet_layers", "num_layers", "pretrained"},
+    "global": {"type", "resnet_layers", "latent_size", "pretrained"},
     "dummy": {"type", "size", "d_out"},
 }
 
 
 def make_backbone(conf: dict, compute_dtype=torch.float32):
-    """Backbone factory: the monodepth2 and dummy types. remat,
-    pretrained, pretrained_strict and cp_location are accepted and not
-    used here: the trainer's init_state applies the ImageNet
-    initialisation they ask for after the net is built
-    (import_torch.apply_pretrained_encoder)."""
+    """Backbone factory (behindthescenes_tpu/models/encoder.py:339-397):
+    the monodepth2, spatial, global and dummy types with their key sets
+    and defaults. remat, pretrained, pretrained_strict and cp_location
+    are accepted and not used here: the trainer's init_state applies the
+    ImageNet initialisation they ask for after the net is built
+    (import_torch.apply_pretrained_encoder, monodepth2 only)."""
     btype = conf.get("type", "monodepth2")
     if btype not in _BACKBONE_KEYS:
-        raise NotImplementedError(f"encoder type {btype!r} is not ported")
+        raise NotImplementedError(f"Unsupported encoder type: {btype}")
     unknown = set(conf) - _BACKBONE_KEYS[btype]
     if unknown:
         raise ValueError(f"unknown encoder config keys: {sorted(unknown)}")
     if btype == "dummy":
         return EncoderDummy(tuple(conf.get("size", (48, 160))),
                             conf.get("d_out", 64))
+    if btype == "spatial":
+        return SpatialEncoder(conf.get("resnet_layers", 34),
+                              conf.get("num_layers", 4), compute_dtype)
+    if btype == "global":
+        return ImageEncoder(conf.get("resnet_layers", 34),
+                            conf.get("latent_size", 128), compute_dtype)
     return Monodepth2(resnet_layers=conf.get("resnet_layers", 18),
                       num_ch_dec=conf.get("num_ch_dec", None),
                       d_out=conf.get("d_out", 128),

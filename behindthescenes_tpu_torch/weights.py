@@ -81,6 +81,8 @@ def torch_name(key: str, dispconv_scales=(0, 1, 2, 3)) -> tuple:
         layer = re.sub(r"^block_(\d+)/", r"blocks.\1.", layer)
         layer = re.sub(r"^lin_(\d+)$", r"lin\1", layer)
         return f"{mlp}.{layer}.{wname}", kind or "dense"
+    if p == "encoder/fc":                 # ImageEncoder's dense layer
+        return f"encoder.fc.{wname}", kind or "dense"
     if p == "" and leaf == "empty_feature":
         return "empty_feature", "plain"
     if p == "encoder" and leaf == "feats":
@@ -162,6 +164,10 @@ def flax_key(name: str, dispconv_scales=(0, 1, 2, 3)) -> tuple:
         fleaf, kind = ("kernel", "dense") if leaf == "weight" \
             else ("bias", "plain")
         return f"params/{mlp}/{layer}/{fleaf}", kind
+    m = re.fullmatch(r"encoder\.fc\.(weight|bias)", name)
+    if m:
+        return (("params/encoder/fc/kernel", "dense") if m.group(1) == "weight"
+                else ("params/encoder/fc/bias", "plain"))
     if name == "empty_feature":
         return "params/empty_feature", "plain"
     if name == "encoder.feats":

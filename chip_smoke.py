@@ -120,6 +120,22 @@ depth launches jitter_density (held against its plain version and
 timed as record jitter_density_demo), and holds the BEV profile, sigma
 and depth to the JAX demo's (media/reference/).
 
+Phase 24 holds two ranks on torch.distributed to one. Phases 25-26 run
+the last of the JAX package's modules: phase 25 builds a synthetic KITTI
+odometry sequence and Waymo drive with the port's generators (each
+tree's files hashed against the tree the JAX reference was taken on),
+holds the first two items of the odometry, Waymo and NYU v2 loaders
+(the NYU fixture read by the port's HDF5 reader) to the JAX loaders'
+hashes, runs `-cn eval_depth` on the NYU fixture and on the Waymo drive
+(shared_z launches held to the plain version; means within JAX_GAP of
+the JAX package's CPU means, tools/extra_data_reference.py) and six
+micro-steps of `-cn exp_kitti_raw` on each tree; phase 26 serves the
+depth gate with the spatial encoder in the four modes (every launch
+held to its plain version, the card's f32 encode to the host's), trains
+it 10 bf16 steps, and extracts the example image's mesh at 64^3 and
+128^3, the 64^3 volume and triangle count held to the JAX package's
+(media/reference/mesh_k360.npz, tools/mesh_reference.py).
+
 Prints one progress line per phase (flushed, with the phase's seconds),
 then a JSON line of frame times, metrics and training times, one JSON line
 with a record per kernel, the card's name and power limit, and as the
@@ -502,6 +518,111 @@ PARALLEL_STATS_RTOL = 1e-6
 PARALLEL_METRIC_RTOL = 1e-5
 PARALLEL_OCC_ATOL = 1e-4
 PARALLEL_OCC_METRICS = ("o_acc", "ie_prec", "ie_rec")
+
+# Phase 25: the other datasets on the card. Trees written by the port's
+# generators in processes of their own (the phase's data overrides come
+# from each generator's `overrides`): a KITTI odometry sequence (12
+# stereo frames at sequence 00's 376x1241, PNG; no cut in size) and a
+# Waymo drive (5 cameras x 24 frames, JPEG at 640x960, a cut from
+# Waymo's 1280x1920: the port's JPEG decode is Python; LiDAR `.npy`);
+# NYU Depth v2 from the committed MATLAB v7.3 fixture (4 items at
+# 480x640, written by tools/make_nyu_fixture.py). Each eval_depth run
+# (k360_synth_conv.npz, 192x640, 64 samples, bf16: shared_z at H = 64
+# once per item) is held within JAX_GAP of the JAX package's means on
+# the CPU on the same inputs; each training run of exp_kitti_raw takes
+# EXTRA_TRAIN_STEPS micro-steps. The first two items of every loader
+# are hashed (datasets/loader.item_digest) and must equal the JAX
+# loaders' hashes of the same trees, and each tree's files must hash as
+# the tree the reference was taken on: `JAX_PLATFORMS=cpu python3
+# tools/extra_data_reference.py` prints EXTRA_REFERENCE.
+EXTRA_TREES = {"kitti_odom": "gen_synthetic_kitti_odom",
+               "waymo": "gen_synthetic_waymo"}
+NYU_FIXTURE = "media/fixtures"
+NYU_OVERRIDES = ("data.type=NYU_Depth_V2", f"data.data_path={NYU_FIXTURE}")
+# (run, the tree it reads or None for the fixture, extra overrides)
+EXTRA_EVALS = (("nyu", None, NYU_OVERRIDES), ("waymo", "waymo", ()))
+# (run, tree, extra overrides): the odometry run is stereo; the Waymo
+# run combines its cameras' views (`waymo-3`) and takes batches of 2
+# (a cut from 8: an item decodes 10 JPEG frames on the host).
+EXTRA_TRAIN = (("kitti_odom", "kitti_odom", ("data.data_stereo=true",)),
+               ("waymo", "waymo", ("model_conf.frame_sample_mode=waymo-3",
+                                   "batch_size=2")))
+EXTRA_TRAIN_STEPS = 6
+EXTRA_TIMED_FROM = 2
+# The loaders hashed: (loader, tree or None, config, overrides, split).
+EXTRA_LOADERS = (
+    ("kitti_odom train", "kitti_odom", "exp_kitti_raw",
+     ("data.data_stereo=true",), 0),
+    ("kitti_odom test", "kitti_odom", "exp_kitti_raw",
+     ("data.data_stereo=true",), 1),
+    ("waymo train", "waymo", "exp_kitti_raw", (), 0),
+    ("waymo test", "waymo", "exp_kitti_raw", (), 1),
+    ("nyu test", None, "eval_depth", NYU_OVERRIDES, 1),
+)
+# From `JAX_PLATFORMS=cpu python3 tools/extra_data_reference.py` on this
+# repository's generators (OpenCV 5.0.0, h5py 3.14.0, numpy 2.0.2): the
+# trees' hashes, the JAX loaders' item hashes, JAX's means.
+EXTRA_REFERENCE = {
+    "trees": {
+        "kitti_odom": "ca4f82d63f660717b90abd22d286194a"
+                      "36554998e65657e8a482746a793b480a",
+        "waymo": "d4b858a784a0c66ed06435d590283413"
+                 "a0526c650d4080c1cef73b947fac6e37"},
+    "loaders": {
+        "kitti_odom train": [
+            "a6235882f43c5228be0d957210252686"
+            "162c0b630bd6152e0e0302e6e6f18308",
+            "3b4d458c63d0bcea41628eb04811e240"
+            "fa3ac1a43cb353b483f058713521b5dd"],
+        "kitti_odom test": [
+            "a6235882f43c5228be0d957210252686"
+            "162c0b630bd6152e0e0302e6e6f18308",
+            "3b4d458c63d0bcea41628eb04811e240"
+            "fa3ac1a43cb353b483f058713521b5dd"],
+        "waymo train": [
+            "50531aadfff0442ede499de52e412626"
+            "e7b9afe0b82e57dac6e9c15e867adf79",
+            "c3bfe3edf3f29f5c72afc6fd319ebb5b"
+            "e94d51edfce380b07d1186fb30d9fc55"],
+        "waymo test": [
+            "2dd3585ebebf96f5fc1ef92bc17b73cd"
+            "46018e06657623f80f4793bd487b2da9",
+            "07f94d6bd93d49499f7f058f0572e5a7"
+            "5cc0727361c69c611d6977ba23466711"],
+        "nyu test": [
+            "ac286f01de2e7a77e0ebee1ed74d904b"
+            "d1bbf79fb017fd4f3629834c323b14a9",
+            "928fbbc92fbc99cc5d3560c827c5e4be"
+            "dc0ac209ea1a4179eb646682fa0381f0"]},
+    "means": {"nyu": {"abs_rel": 0.7624412626028061,
+                      "a1": 0.27634277343749997},
+              "waymo": {"abs_rel": 0.1986686121672392,
+                        "a1": 0.8967912526925272}},
+}
+
+# Phase 26: the spatial encoder (pixelNeRF's: ResNet-34, 4 stages, 512
+# channels at stride 2) in the flagship model, with weights drawn from
+# SPATIAL_SEED through the bridge: (a) the gate's 4 scenes served at
+# 192x640x64 in phases 3-6's four modes, every kernel launch held to its
+# plain version, encode and frame timed beside phase 6's, and the card's
+# f32 encode held to the host CPU's within SPATIAL_ENCODE_RTOL of the
+# map's largest value (cuDNN and the host sum in other orders); (b)
+# SPATIAL_TRAIN_STEPS bf16 steps on phase 7's batch (losses finite and
+# falling); (c) the mesh of the example image through
+# k360_synth_conv.npz in f32 at MESH_RESOLUTIONS, the 64^3 volume held
+# to the JAX package's (`JAX_PLATFORMS=cpu python3
+# tools/mesh_reference.py` writes MESH_REFERENCE): sigma's relative error
+# over the grid (2-norm) within MESH_SIGMA_RTOL, as phase 23's, and the
+# triangle count within MESH_FACES_RTOL.
+SPATIAL_ENCODER = {"type": "spatial", "resnet_layers": 34, "num_layers": 4}
+SPATIAL_SEED = 0
+SPATIAL_ENCODE_RTOL = 1e-4
+SPATIAL_TRAIN_STEPS = 10
+SPATIAL_TIMED_FROM = 2
+MESH_RESOLUTIONS = (64, 128)
+MESH_REFERENCE = "media/reference/mesh_k360.npz"
+MESH_SIGMA_RTOL = 1e-2
+MESH_FACES_RTOL = 0.01
 
 
 def log(phase: str, msg: str, t_phase: float) -> None:
@@ -1140,15 +1261,18 @@ def depth_frame_ms(calls, clock) -> dict:
 
 
 def config_phase(name: str, checkpoint: str, jax_means: dict, dev, clock,
-                 overrides=(), frames: int = NVS_TIMED_FRAMES) -> dict:
+                 overrides=(), frames: int = NVS_TIMED_FRAMES,
+                 label: str = None) -> dict:
     """One config through the task runner, with the decode kernels'
     launches counted from 0 and the peak memory. Raises unless every mean
     is finite and within JAX_GAP of jax_means, and the means meet
-    NVS_FLOORS and DEPTH_GATES. NVS configs also get their frame time
-    split. For a row of KERNEL_ROWS, raises unless its kernel, and no
-    other, was launched once per scene at the row's width, each launch
-    within tolerance of the plain version on its arguments; its first
-    launch's (args, kwargs) are res["launch"]."""
+    NVS_FLOORS and DEPTH_GATES (of `label`, the config's name unless
+    given: phase 25 runs eval_depth on other data, which has no floors).
+    NVS configs also get their frame time split. For a row of
+    KERNEL_ROWS, raises unless its kernel, and no other, was launched
+    once per scene at the row's width, each launch within tolerance of
+    the plain version on its arguments; its first launch's (args,
+    kwargs) are res["launch"]."""
     import math
     import torch
     from behindthescenes_tpu_torch.ops import kernels
@@ -1160,7 +1284,8 @@ def config_phase(name: str, checkpoint: str, jax_means: dict, dev, clock,
         state["mode"], state["calls"] = name, []
         conf, means, calls = config_eval(name, checkpoint, dev, overrides)
     launched = kernels.launch_counts()
-    res = {"config": name, "checkpoint": checkpoint, "means": means,
+    label = label or name
+    res = {"config": label, "checkpoint": checkpoint, "means": means,
            "jax_means": jax_means,
            "per_scene": [out for _, _, out in calls], "launches": launched,
            "peak_memory": torch.cuda.max_memory_allocated() if cuda
@@ -1184,11 +1309,11 @@ def config_phase(name: str, checkpoint: str, jax_means: dict, dev, clock,
         if not abs(means[k] - want) <= JAX_GAP[k]:
             raise AssertionError(f"{name}: {k} {means[k]:.6f} vs JAX "
                                  f"{want:.6f} (bound {JAX_GAP[k]})")
-    for k, floor in NVS_FLOORS.get(name, {}).items():
+    for k, floor in NVS_FLOORS.get(label, {}).items():
         if not means[k] > floor:
             raise AssertionError(f"{name}: {k} {means[k]:.4f} under the "
                                  f"JAX gate's {floor}")
-    gate = DEPTH_GATES.get(name)
+    gate = DEPTH_GATES.get(label)
     if gate and not (means["abs_rel"] < gate["abs_rel"]
                      and means["a1"] > gate["a1"]):
         raise AssertionError(f"{name}: abs_rel {means['abs_rel']:.4f} "
@@ -1893,16 +2018,21 @@ def timed_calls(owner, attr: str, seconds: list):
 
 
 def loader_split(ds, indices) -> dict:
-    """Items of a KITTI raw or RealEstate10K dataset made one after
-    another on this thread: median ms of an item, of its JPEG reads (and
-    their count) and of its velodyne ground truth (KITTI raw's test
-    split), and the JPEG reads' share of the items' time."""
+    """Items of a disk dataset made one after another on this thread:
+    median ms of an item, of its frame reads (JPEG, PNG for KITTI
+    odometry, an HDF5 dataset's index for NYU; and their count) and of
+    its velodyne ground truth (KITTI raw's test split), and the frame
+    reads' share of the items' time."""
     import statistics
-    from behindthescenes_tpu_torch.datasets import kitti_raw, realestate10k
+    from behindthescenes_tpu_torch.datasets import (hdf5, kitti_odom,
+                                                    kitti_raw, realestate10k,
+                                                    waymo)
     jpeg, velo, item, frames = [], [], [], []
     with contextlib.ExitStack() as stack:
-        for mod in (kitti_raw, realestate10k):
+        for mod in (kitti_raw, realestate10k, waymo):
             stack.enter_context(timed_calls(mod, "read_jpeg", jpeg))
+        stack.enter_context(timed_calls(kitti_odom, "read_png_color", jpeg))
+        stack.enter_context(timed_calls(hdf5.Dataset, "__getitem__", jpeg))
         stack.enter_context(timed_calls(kitti_raw.KittiRawDataset,
                                         "load_depth", velo))
         for i in indices:
@@ -1915,9 +2045,9 @@ def loader_split(ds, indices) -> dict:
             if len(velo) > n_velo:
                 velo[n_velo:] = [sum(velo[n_velo:])]
     out = {"item_ms": statistics.median(item) * 1e3,
-           "jpeg_ms": statistics.median(jpeg) * 1e3,
-           "jpeg_frames": statistics.median(frames),
-           "jpeg_share": sum(jpeg) / sum(item)}
+           "read_ms": statistics.median(jpeg) * 1e3,
+           "reads": statistics.median(frames),
+           "read_share": sum(jpeg) / sum(item)}
     if velo:
         out["velodyne_ms"] = statistics.median(velo) * 1e3
     return out
@@ -1925,20 +2055,23 @@ def loader_split(ds, indices) -> dict:
 
 def disk_eval_phase(phase: str, name: str, checkpoint: str, tree_over,
                     jax_means: dict, dev, card: str, clock_fn,
-                    extra=()) -> tuple:
-    """Phase 18's or 20's benchmark: configs/NAME with `checkpoint` on a
-    tree (its data overrides `tree_over`) through `config_phase` (the means within JAX_GAP of JAX's and
-    above the floors; eval_depth's shared_z launches once per keyframe at
-    H = 64, each against its plain version, on KRAW_LAUNCH_SHAPE;
-    eval_nvs with no decode kernel), then the test loader's items split
-    on the host. Prints and returns (the record, the first launch's
-    (args, kwargs) or None)."""
+                    extra=(), label: str = None,
+                    loader_items: int = 4) -> tuple:
+    """Phase 18's, 20's or 25's benchmark: configs/NAME with `checkpoint`
+    on a tree (its data overrides `tree_over`) through `config_phase`
+    (the means within JAX_GAP of JAX's and above the floors of `label`;
+    eval_depth's shared_z launches once per keyframe at H = 64, each
+    against its plain version, on KRAW_LAUNCH_SHAPE; eval_nvs with no
+    decode kernel), then the first `loader_items` of the test loader's
+    items split on the host. Prints and returns (the record, the first
+    launch's (args, kwargs) or None)."""
     from behindthescenes_tpu_torch.config import (find_config, load_config,
                                                   parse_cli_overrides)
     from behindthescenes_tpu_torch.datasets.factory import make_test_dataset
     t = time.perf_counter()
+    label = label or name
     res = config_phase(name, checkpoint, jax_means, dev, clock_fn(),
-                       (*tree_over, *extra))
+                       (*tree_over, *extra), label=label)
     launch = res.pop("launch", None)
     launched = res["launches"]
     if name == "eval_depth":
@@ -1957,10 +2090,10 @@ def disk_eval_phase(phase: str, name: str, checkpoint: str, tree_over,
     ds = make_test_dataset(conf["data"])
     if hasattr(ds, "return_depth"):
         ds.return_depth = True
-    res["loader"] = loader_split(ds, range(min(len(ds), 4)))
+    res["loader"] = loader_split(ds, range(min(len(ds), loader_items)))
     keys = list(jax_means)
     peak, fm, ld = res["peak_memory"], res["frame_ms"], res["loader"]
-    print(f"[chip_smoke] {name} on the synthetic tree ({card}): "
+    print(f"[chip_smoke] {label} on the synthetic tree ({card}): "
           + ", ".join(f"{k} {res['means'][k]:.6f} (JAX on the CPU "
                       f"{jax_means[k]:.6f}, gap {res['gap_' + k]:+.6f}, "
                       f"bound {JAX_GAP[k]})" for k in keys)
@@ -1973,13 +2106,13 @@ def disk_eval_phase(phase: str, name: str, checkpoint: str, tree_over,
              else "")
           + "; peak memory " + ("not measured" if peak is None
                                 else f"{peak / 2**30:.2f} GiB"), flush=True)
-    print(f"[chip_smoke] {name} frame ({card}): median {fm['frame']:.3f} ms"
+    print(f"[chip_smoke] {label} frame ({card}): median {fm['frame']:.3f} ms"
           f" (encode {fm['encode']:.3f}, render {fm['render']:.3f}); the "
           f"loader's item {ld['item_ms']:.1f} ms on one host thread, of "
-          f"which {ld['jpeg_frames']:.0f} JPEG reads {ld['jpeg_ms']:.1f} ms"
+          f"which {ld['reads']:.0f} frame reads {ld['read_ms']:.1f} ms"
           + (f" and the velodyne ground truth {ld['velodyne_ms']:.1f} ms"
              if "velodyne_ms" in ld else ""), flush=True)
-    log(f"phase {phase} {name}", "within the bounds of JAX's means", t)
+    log(f"phase {phase} {label}", "within the bounds of JAX's means", t)
     return res, launch
 
 
@@ -1992,14 +2125,15 @@ def _generator(module: str):
 
 def disk_training_phase(phase: str, name: str, checkpoint: str, tree_over,
                         stop: int, timed_from: int, dev, card: str,
-                        clock_fn, extra=()) -> dict:
-    """Phase 19's or 20's training: configs/NAME on a tree (its data
-    overrides `tree_over`) through the port's training task for `stop` micro-steps, the encoder from a
-    torchvision-keyed `.pth` of `checkpoint`. Raises unless every loss is
-    finite, the run took `stop` micro-steps and no decode kernel was
-    launched. Prints and returns the micro-step split (after
-    `timed_from`), the loader's wait, the loader's item on one host
-    thread with its JPEG share, and the peak memory."""
+                        clock_fn, extra=(), label: str = None) -> dict:
+    """Phase 19's, 20's or 25's training: configs/NAME on a tree (its data
+    overrides `tree_over`) through the port's training task for `stop`
+    micro-steps, the encoder from a torchvision-keyed `.pth` of
+    `checkpoint`. Raises unless every loss is finite, the run took `stop`
+    micro-steps and no decode kernel was launched. Prints and returns the
+    micro-step split (after `timed_from`), the loader's wait, the
+    loader's item on one host thread with its frame reads' share, and
+    the peak memory; `label` names the run in them."""
     import math
     import torch
     from behindthescenes_tpu_torch.config import (find_config, load_config,
@@ -2034,7 +2168,8 @@ def disk_training_phase(phase: str, name: str, checkpoint: str, tree_over,
         trainer = tasks.bts_training(conf, device=dev, mark=mark,
                                      on_iteration=on_iteration)
         clock.sync()
-        res = {"config": name, "checkpoint": checkpoint, "stop": stop,
+        res = {"config": label or name, "checkpoint": checkpoint,
+               "stop": stop,
                "run_s": time.perf_counter() - t0, "losses": losses,
                "launches": kernels.launch_counts(),
                "peak_memory": torch.cuda.max_memory_allocated() if cuda
@@ -2053,8 +2188,8 @@ def disk_training_phase(phase: str, name: str, checkpoint: str, tree_over,
         train_ds = tasks.bts_get_dataflow(conf)[0].dataset
         res["loader"] = loader_split(train_ds, range(conf["batch_size"]))
     print_disk_training(res, phase, timed_from, card)
-    log(f"phase {phase} {name}", f"{stop} micro-steps, losses finite, no "
-        "decode kernel", t)
+    log(f"phase {phase} {label or name}", f"{stop} micro-steps, losses "
+        "finite, no decode kernel", t)
     return res
 
 
@@ -2076,8 +2211,8 @@ def print_disk_training(res: dict, phase: str, timed_from: int,
           f"(first micro-step {res['loader_wait_ms'][0]:.2f}); losses "
           f"{res['losses'][0]:.5f} ... {res['losses'][-1]:.5f}; the loader's"
           f" item {ld['item_ms']:.1f} ms on one host thread, of which "
-          f"{ld['jpeg_frames']:.0f} JPEG reads {ld['jpeg_ms']:.1f} ms "
-          f"({100 * ld['jpeg_share']:.1f}%); decode kernel launches "
+          f"{ld['reads']:.0f} frame reads {ld['read_ms']:.1f} ms "
+          f"({100 * ld['read_share']:.1f}%); decode kernel launches "
           f"{json.dumps(res['launches'])}; peak memory "
           + ("not measured" if peak is None else f"{peak / 2**30:.2f} GiB"),
           flush=True)
@@ -2746,6 +2881,311 @@ def parallel_phase(dev, card: str, conf: dict, weights: str,
                                   for res in ranks]}
 
 
+def tree_digest(tree: str) -> str:
+    """SHA-256 of a tree's files: each relative path in sorted order with
+    its bytes (a symbolic link with its target's name)."""
+    import hashlib
+    entries = []
+    for d, dirs, files in os.walk(tree):
+        entries += [os.path.join(d, f) for f in files]
+        entries += [os.path.join(d, f) for f in dirs
+                    if os.path.islink(os.path.join(d, f))]
+    h = hashlib.sha256()
+    for path in sorted(entries):
+        h.update(os.path.relpath(path, tree).encode() + b"|")
+        if os.path.islink(path):
+            h.update(b"-> " + os.readlink(path).encode())
+        else:
+            with open(path, "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()
+
+
+def extra_loader_digests(tree_over: dict, extra=(),
+                         loaders=EXTRA_LOADERS) -> dict:
+    """{loader: [item_digest of items 0 and 1]} of each of `loaders`,
+    each dataset made fresh from its config and `extra` overrides (its
+    colour jitter drawn from its seed, item 0 first)."""
+    from behindthescenes_tpu_torch.config import (find_config, load_config,
+                                                  parse_cli_overrides)
+    from behindthescenes_tpu_torch.datasets.factory import make_datasets
+    from behindthescenes_tpu_torch.datasets.loader import item_digest
+    out = {}
+    for name, tree, config, over, split in loaders:
+        over = [*(tree_over[tree] if tree else ()), *over, *extra]
+        conf = load_config(find_config(config), parse_cli_overrides(over))
+        ds = make_datasets(conf["data"])[split]
+        out[name] = [item_digest(ds[i]) for i in range(2)]
+    return out
+
+
+def extra_data_phase(dev, card: str, clock_fn, tree_args=None,
+                     loader_extra=(), eval_extra=(), train_extra=(),
+                     reference=None, steps: int = EXTRA_TRAIN_STEPS,
+                     timed_from: int = EXTRA_TIMED_FROM) -> dict:
+    """Phase 25: the trees of EXTRA_TREES built (with `tree_args`) in a
+    temporary directory and hashed, the loaders' items hashed (with
+    `loader_extra`), the eval_depth runs of EXTRA_EVALS (`eval_extra`
+    cuts them; each launch of shared_z held to its plain version) and the
+    training runs of EXTRA_TRAIN (`train_extra`). Holds the hashes and
+    the means to `reference` (EXTRA_REFERENCE unless given). Returns the
+    record."""
+    reference = EXTRA_REFERENCE if reference is None else reference
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="extra_trees_") as tmp:
+        tree_over = {}
+        for key, module in EXTRA_TREES.items():
+            t = time.perf_counter()
+            tree = os.path.join(tmp, key)
+            secs = build_tree(module, tree, (tree_args or {}).get(module, ()))
+            secs["digest"] = tree_digest(tree)
+            out[f"{key}_tree"] = secs
+            tree_over[key] = _generator(module).overrides(tree)
+            want = reference["trees"][key]
+            log("phase 25 tree", f"{module} on the host: "
+                f"{secs['seconds']:.1f} s ({secs['frame_bytes'] / 1e6:.1f} "
+                f"MB of frames; summed over the pool, render "
+                f"{secs['render']:.1f} s); sha256 {secs['digest'][:16]} "
+                f"(the reference's {want[:16]})", t)
+            if secs["digest"] != want:
+                raise AssertionError(f"{module}: the tree differs from the "
+                                     "one the JAX reference was taken on")
+        t = time.perf_counter()
+        digests = extra_loader_digests(tree_over, loader_extra)
+        out["loader_digests"] = digests
+        for name, got in digests.items():
+            print(f"[chip_smoke] {name} loader: items 0, 1 sha256 "
+                  f"{got[0][:16]}, {got[1][:16]}", flush=True)
+        if digests != reference["loaders"]:
+            raise AssertionError(f"loader items differ from the JAX "
+                                 f"loaders': {digests} vs "
+                                 f"{reference['loaders']}")
+        log("phase 25 loaders", f"{len(digests)} loaders' first two items "
+            "equal the JAX loaders' (sha256)", t)
+        for run, tree, extra in EXTRA_EVALS:
+            out[f"eval_depth {run}"] = disk_eval_phase(
+                "25", "eval_depth", K360_WEIGHTS,
+                tree_over[tree] if tree else (), reference["means"][run],
+                dev, card, clock_fn, (*extra, *eval_extra),
+                label=f"eval_depth {run}", loader_items=2)[0]
+        for run, tree, extra in EXTRA_TRAIN:
+            out[f"exp_kitti_raw {run}"] = disk_training_phase(
+                "25", "exp_kitti_raw", K360_WEIGHTS, tree_over[tree], steps,
+                timed_from, dev, card, clock_fn, (*extra, *train_extra),
+                label=f"exp_kitti_raw {run}")
+    return out
+
+
+def spatial_model_conf(model_conf: dict) -> dict:
+    """`model_conf` with the spatial encoder of SPATIAL_ENCODER."""
+    import copy
+    conf = copy.deepcopy(model_conf)
+    conf["encoder"] = dict(SPATIAL_ENCODER)
+    return conf
+
+
+def seeded_weights(path: str, model_conf: dict, seed: int = SPATIAL_SEED):
+    """A Flax-keyed `.npz` for `model_conf`'s BTSNet drawn from numpy's
+    generator through the bridge (weights.flax_key): convolution and dense
+    kernels He-normal over their fan-in, biases 0.01-normal, BatchNorm
+    scales about 1 (about 0.1 on each residual branch's last one, so that
+    the 16 residual sums of a ResNet-34 with untrained statistics do not
+    grow the features a hundredfold), its statistics about (0, 1)."""
+    import numpy as np
+    from behindthescenes_tpu_torch.models.bts import BTSNet
+    from behindthescenes_tpu_torch.weights import flax_key
+    rng = np.random.default_rng(seed)
+    net = BTSNet.from_conf(model_conf)
+    flat = {}
+    for name, t in net.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        key, kind = flax_key(name)
+        shape = tuple(t.shape)
+        if kind in ("conv", "dense"):
+            fan_in = int(np.prod(shape[1:]))
+            arr = rng.normal(0, np.sqrt(2.0 / fan_in), shape)
+            arr = arr.transpose((2, 3, 1, 0) if kind == "conv" else (1, 0))
+        elif key.endswith("/conv2/bn/scale"):
+            arr = rng.uniform(0.05, 0.15, shape)
+        elif key.endswith("/scale") or key.endswith("/var"):
+            arr = rng.uniform(0.8, 1.2, shape)
+        else:
+            arr = rng.normal(0, 0.01 if key.startswith("params") else 0.1,
+                             shape)
+        flat[key] = np.ascontiguousarray(arr, np.float32)
+    np.savez(path, **flat)
+    return path
+
+
+def spatial_phase(dev, card: str, clock_fn, batches, train_conf: dict,
+                  batch: dict, draws, steps: int = SPATIAL_TRAIN_STEPS,
+                  timed_from: int = SPATIAL_TIMED_FROM,
+                  resolutions=MESH_RESOLUTIONS,
+                  reference: str = MESH_REFERENCE, image_size=None) -> dict:
+    """Phase 26 (see SPATIAL_ENCODER): (a) serving in the four MODES on
+    `batches` with every launch held to its plain version; (b) bf16
+    train steps on `batch` with `draws`; (c) the mesh. Returns the
+    record."""
+    import numpy as np
+    import torch
+    from behindthescenes_tpu_torch import eval_depth
+    from behindthescenes_tpu_torch.config import find_config, load_config
+    from behindthescenes_tpu_torch.datasets.png import resize_linear
+    from behindthescenes_tpu_torch.evaluation.tasks import _net_and_cfg
+    from behindthescenes_tpu_torch.ops import kernels
+    from behindthescenes_tpu_torch.scripts import inference_setup as iset
+    from behindthescenes_tpu_torch.utils import recon
+    from behindthescenes_tpu_torch.utils.io import read_image
+    cuda = torch.device(dev).type == "cuda"
+    out = {"card": card, "encoder": dict(SPATIAL_ENCODER)}
+    model_conf = spatial_model_conf(eval_depth.FLAGSHIP_MODEL_CONF)
+    with tempfile.TemporaryDirectory(prefix="spatial_") as tmp:
+        weights = seeded_weights(os.path.join(tmp, "spatial.npz"), model_conf)
+        # -- (a) serving ---------------------------------------------------
+        t = time.perf_counter()
+        nets = {bf16: eval_depth.load_model(weights, model_conf, bf16=bf16,
+                                            device=dev)
+                for bf16 in (False, True)}
+        kernels.reset_launch_counts()
+        out["launches"], calls = {}, []
+        with recorded_kernel_args() as (_, state):
+            state["calls"] = calls
+            for mode, bf16, jitter, kernel, _ in MODES:
+                state["mode"] = mode
+                before = kernels.launch_counts()[kernel]
+                eval_depth.evaluate(nets[bf16], batches, model_conf,
+                                    jitter=jitter)
+                out["launches"][mode] = kernels.launch_counts()[kernel] \
+                    - before
+                if out["launches"][mode] != len(batches):
+                    raise AssertionError(f"spatial {mode}: {kernel} "
+                                         f"launched {out['launches'][mode]}"
+                                         f" times for {len(batches)} scenes")
+        launched = kernels.launch_counts()
+        errs = {}
+        for i, (kernel, args, kwargs) in enumerate(calls):
+            rec = "shared_z_bf16" if kernel == "shared_z" and \
+                args[0].dtype == torch.bfloat16 else kernel
+            err = against_plain(rec, kernel, args, kwargs,
+                                f"spatial launch {i}")[0]
+            errs.setdefault(rec, []).append(err)
+        out["max_abs_err"] = {k: max(v) for k, v in errs.items()}
+        out["launch_shape"] = list(calls[0][1][0].shape)
+        print(f"[chip_smoke] spatial encoder serving ({card}): launches "
+              f"{json.dumps(launched)} on {out['launch_shape']} per scene; "
+              "max abs deviation from the plain version "
+              + ", ".join(f"{k} {v:.3e}" for k, v in
+                          out["max_abs_err"].items()), flush=True)
+        args = [torch.as_tensor(batches[0][k], device=dev)
+                for k in ("imgs", "projs", "poses")]
+        with torch.no_grad():
+            feats = nets[False].encode(*args, ids_encoder=[0]).features[0]
+            host = eval_depth.load_model(weights, model_conf, device="cpu")
+            want = host.encode(*(a.cpu() for a in args),
+                               ids_encoder=[0]).features[0]
+        dev_max = (feats.float().cpu() - want).abs().max().item()
+        scale = want.abs().max().item()
+        out["encode_vs_host"] = {"max_abs": dev_max, "max_feature": scale,
+                                 "shape": list(want.shape)}
+        if not dev_max <= SPATIAL_ENCODE_RTOL * scale:
+            raise AssertionError(f"spatial f32 encode: {dev} vs the host "
+                                 f"{dev_max:.3e} (max |f| {scale:.3f})")
+        out["frame_ms"], out["encode_ms"] = {}, {}
+        if cuda:
+            with torch.no_grad():
+                for mode, bf16, jitter, _, _ in MODES:
+                    ev = eval_depth.DepthEvaluator(
+                        nets[bf16], eval_depth.FLAGSHIP_RENDERER, model_conf,
+                        jitter=jitter)
+                    gen = torch.Generator(device=dev)
+                    gen.manual_seed(eval_depth.SEED)
+                    out["frame_ms"][mode] = cuda_ms(
+                        lambda: ev.render(*args, generator=gen), iters=20)
+                    out["encode_ms"][mode] = cuda_ms(
+                        lambda: nets[bf16].encode(*args, ids_encoder=[0]),
+                        iters=20)
+        print(f"[chip_smoke] spatial encoder frame ({card}), features "
+              f"{out['encode_vs_host']['shape']}: "
+              + ", ".join(f"{m} {out['frame_ms'][m]:.3f} ms (encode "
+                          f"{out['encode_ms'][m]:.3f})"
+                          for m in out["frame_ms"])
+              + f"; the f32 encode against the host CPU's: max abs "
+              f"{dev_max:.3e} of max |f| {scale:.3f} (bound "
+              f"{SPATIAL_ENCODE_RTOL} of it)", flush=True)
+        log("phase 26 spatial serving", "every launch within tolerance of "
+            "its plain version; the card's encode agrees with the host's", t)
+        # -- (b) training ----------------------------------------------------
+        t = time.perf_counter()
+        conf = dict(train_conf, model_conf=spatial_model_conf(
+            train_conf["model_conf"]))
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        res = train_steps(conf, weights, batch, draws, dev, True, clock_fn(),
+                          steps=steps, timed_from=timed_from)
+        res["peak_memory"] = torch.cuda.max_memory_allocated() if cuda \
+            else None
+        out["training"] = res
+        med = res["median_ms"]
+        print(f"[chip_smoke] spatial encoder train bf16 ({card}): loss "
+              f"{res['losses'][0]:.6f} -> {res['losses'][-1]:.6f} over "
+              f"{steps} steps; median step {med['step']:.2f} ms over steps "
+              f"{timed_from}-{steps - 1}: "
+              + ", ".join(f"{k} {med[k]:.2f}" for k in STAGES)
+              + " ms; peak memory " + ("not measured" if not cuda else
+                                       f"{res['peak_memory'] / 2**30:.2f} "
+                                       "GiB"), flush=True)
+        log("phase 26 spatial training", "losses finite and falling", t)
+    # -- (c) the mesh ------------------------------------------------------
+    t = time.perf_counter()
+    config = load_config(find_config("exp_kitti_raw"))
+    config["checkpoint"], config["bf16"] = K360_WEIGHTS, False
+    net, _ = _net_and_cfg(config, dev)
+    h, w = image_size or iset.DEFAULT_RESOLUTION["kitti_raw"]
+    img = resize_linear(read_image(DEMO_IMAGE), (h, w))
+    with torch.no_grad():
+        grid = iset.encode_image(net, img,
+                                 *iset.DEFAULT_INTRINSICS["kitti_raw"])
+    ref = np.load(reference)
+    out["mesh"] = {}
+    for res_n in resolutions:
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        volume = recon.density_volume(net, grid, resolution=res_n)
+        t1 = time.perf_counter()
+        verts, faces = recon.extract_mesh_from_density(
+            None, None, resolution=res_n, volume=volume)
+        t2 = time.perf_counter()
+        rec = {"query_ms": (t1 - t0) * 1e3, "marching_ms": (t2 - t1) * 1e3,
+               "triangles": int(len(faces)), "vertices": int(len(verts)),
+               "sigma_max": float(volume.max())}
+        if not (np.isfinite(volume).all() and np.isfinite(verts).all()
+                and len(faces) > 0):
+            raise AssertionError(f"mesh at {res_n}: not finite or empty")
+        if res_n == ref["sigma"].shape[0]:
+            rec["sigma_rel"] = float(np.linalg.norm(volume - ref["sigma"])
+                                     / np.linalg.norm(ref["sigma"]))
+            rec["jax_triangles"] = int(ref["triangles"])
+            rec["triangles_rel"] = abs(len(faces) - rec["jax_triangles"]) \
+                / rec["jax_triangles"]
+            if not (rec["sigma_rel"] <= MESH_SIGMA_RTOL
+                    and rec["triangles_rel"] <= MESH_FACES_RTOL):
+                raise AssertionError(f"mesh at {res_n} vs JAX's: {rec}")
+        out["mesh"][res_n] = rec
+        print(f"[chip_smoke] mesh of {DEMO_IMAGE} at {res_n}^3 ({card}): "
+              f"query {rec['query_ms']:.1f} ms on {dev}, marching "
+              f"tetrahedra {rec['marching_ms']:.1f} ms on the host; "
+              f"{rec['triangles']} triangles"
+              + (f" (JAX {rec['jax_triangles']}, "
+                 f"{100 * rec['triangles_rel']:.2f}% apart, bound "
+                 f"{100 * MESH_FACES_RTOL:.0f}%); sigma's relative error "
+                 f"{rec['sigma_rel']:.2e} (bound {MESH_SIGMA_RTOL})"
+                 if "sigma_rel" in rec else ""), flush=True)
+    log("phase 26 mesh", "the volume and the mesh agree with JAX's", t)
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3039,6 +3479,13 @@ def main() -> None:
     log("phase 24 multi-GPU", f"world {PARALLEL_WORLD} ({parallel['backend']}"
         ") within its bounds of world 1", t)
 
+    # -- 25: the KITTI odometry, Waymo and NYU v2 loaders ------------------
+    extra = extra_data_phase(dev, card, cuda_clock)
+
+    # -- 26: the spatial encoder and the mesh ------------------------------
+    spatial = spatial_phase(dev, card, cuda_clock, batches, conf, batch,
+                            draws)
+
     print(json.dumps({"frame_ms": frame_ms, "encode_ms": encode_ms,
                       "serving": serving, "general_path": general["means"],
                       "train_parity": parity, "training": training,
@@ -3047,7 +3494,8 @@ def main() -> None:
                       "k360_training": k360_run, "fast_training": fast,
                       "disk_benchmarks": disk, "sweep": sweep_res,
                       "tile_fetch": tile_res, "demos": demos,
-                      "parallel": parallel}),
+                      "parallel": parallel, "extra_data": extra,
+                      "spatial": spatial}),
           flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)

@@ -57,7 +57,7 @@ def test_disk_phases_rehearsed(monkeypatch, capsys):
     assert args[0].shape == (32 * 96, 64) and args[1].shape[0] == 64
     assert args[0].dtype == torch.bfloat16
     assert set(depth["frame_ms"]) == {"encode", "render", "frame"}
-    assert depth["loader"]["jpeg_frames"] == 4
+    assert depth["loader"]["reads"] == 4
     assert depth["loader"]["velodyne_ms"] > 0
     assert not any(nvs["launches"].values())
     assert "velodyne_ms" not in nvs["loader"]
@@ -66,8 +66,8 @@ def test_disk_phases_rehearsed(monkeypatch, capsys):
         assert len(res["losses"]) == 2 and not any(res["launches"].values())
         assert set(res["median_stage_ms"]) == set(cs.RUN_POINTS[2:])
         assert res["loader"]["item_ms"] > 0
-    assert out["exp_kitti_raw"]["loader"]["jpeg_frames"] == 4
-    assert out["exp_re10k"]["loader"]["jpeg_frames"] == 3
+    assert out["exp_kitti_raw"]["loader"]["reads"] == 4
+    assert out["exp_re10k"]["loader"]["reads"] == 3
     assert out["gen_synthetic_kitti_raw_tree"]["velodyne"] > 0
     nbytes, flops = cs.work("shared_z_bf16", args, kwargs)
     assert nbytes > 0 and sum(flops.values()) > 0

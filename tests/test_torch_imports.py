@@ -1,6 +1,6 @@
 """The port and chip_smoke.py import nothing of JAX, Flax, PyYAML, OpenCV,
-PIL, matplotlib or the JAX package: the GPU machine that runs them has none
-of those.
+PIL, matplotlib, h5py, scipy or the JAX package: the GPU machine that runs
+them has none of those.
 Every module of behindthescenes_tpu_torch and chip_smoke.py (without
 running its main) is imported in a fresh interpreter where those modules
 are blocked, and the sources are searched for such imports."""
@@ -18,7 +18,7 @@ torch.set_num_threads(1)
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PORT = os.path.join(ROOT, "behindthescenes_tpu_torch")
 BLOCKED = ("jax", "jaxlib", "flax", "yaml", "cv2", "PIL", "matplotlib",
-           "behindthescenes_tpu")
+           "h5py", "scipy", "behindthescenes_tpu")
 
 _PROBE = r"""
 import importlib, importlib.abc, importlib.util, pkgutil, sys
@@ -97,7 +97,8 @@ def _sources():
 
 def test_no_jax_imports_in_the_sources():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|yaml|cv2|PIL|"
-                     r"matplotlib|behindthescenes_tpu)(\.|\s|$)", re.M)
+                     r"matplotlib|h5py|scipy|behindthescenes_tpu)(\.|\s|$)",
+                     re.M)
     for path in _sources():
         with open(path) as f:
             text = f.read()
@@ -160,3 +161,20 @@ def test_source_scan_covers_the_sweep_and_the_demos():
         ("scripts", "__init__.py"), ("scripts", "inference_setup.py"),
         ("scripts", "gen_img_custom.py"), ("scripts", "gen_imgs.py"))} \
         <= scanned
+
+
+def test_source_scan_covers_the_other_loaders_and_model_extras():
+    """The scan and the blocked-import probe (h5py and scipy blocked too)
+    reach the KITTI odometry, Waymo, NYU v2, VIPER and TRI-PD loaders,
+    the HDF5 reader that replaces h5py, the tree generators of the new
+    datasets, the 3D-conv blocks, the layer extras, the mesh extraction
+    and the segmentation metrics."""
+    scanned = {os.path.relpath(p, PORT) for p in _sources()}
+    assert {os.path.join(*f) for f in (
+        ("datasets", "kitti_odom.py"), ("datasets", "waymo.py"),
+        ("datasets", "hdf5.py"), ("datasets", "nyu_depth_v2.py"),
+        ("datasets", "viper.py"), ("datasets", "tri_pd.py"),
+        ("datasets", "gen_synthetic_kitti_odom.py"),
+        ("datasets", "gen_synthetic_waymo.py"),
+        ("models", "resnet3dconv.py"), ("ops", "layers_extra.py"),
+        ("utils", "recon.py"), ("utils", "metrics_extra.py"))} <= scanned

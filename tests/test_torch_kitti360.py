@@ -357,8 +357,10 @@ def test_unported_options_are_refused(fixture_tree):
     ported: with both, on the fixture tree's raw 700x700 fisheye frames,
     every item of the port's loader (stereo, two frames: 8 views, one
     jitter per item from the loader's seed) equals the JAX loader's, value
-    for value (measured with OpenCV 5.0). The loaders of the datasets
-    still to port refuse, naming their ROADMAP item."""
+    for value (measured with OpenCV 5.0). The factory, which once refused
+    the other disk datasets, now dispatches them (to their loaders, which
+    need a data_path), and refuses only a type that neither package
+    has."""
     kw = dict(data_path=str(fixture_tree / "data"),
               pose_path=str(fixture_tree / "poses"), split_path=None,
               target_image_size=(48, 176), return_stereo=True,
@@ -370,5 +372,7 @@ def test_unported_options_are_refused(fixture_tree):
     assert want[0]["imgs"].shape == (8, 48, 176, 3)
     from behindthescenes_tpu_torch.datasets.factory import make_datasets
     for dtype in ("KITTI_Odometry", "Waymo", "NYU_Depth_V2"):
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(KeyError, match="data_path"):
             make_datasets({"type": dtype})
+    with pytest.raises(NotImplementedError, match="VKITTI"):
+        make_datasets({"type": "VKITTI"})
