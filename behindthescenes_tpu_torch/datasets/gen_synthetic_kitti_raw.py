@@ -12,7 +12,8 @@ the KITTI-360 tree's: at 192x640 a model trained on that tree
 (`media/weights/k360_synth_conv.npz`) sees the same geometry here.
 
 Layout (reference datasets/kitti_raw/kitti_raw_dataset.py):
-  <out>/2011_09_26/calib_cam_to_cam.txt      P_rect_02, P_rect_03, R_rect_00
+  <out>/2011_09_26/calib_cam_to_cam.txt      P_rect_02, P_rect_03, R_rect_00,
+                                             S_rect_02, S_rect_03 (W0 H0)
   <out>/2011_09_26/calib_velo_to_cam.txt     R, T
   <out>/2011_09_26/<seq>/image_02|image_03/data/%010d.jpg
   <out>/2011_09_26/<seq>/velodyne_points/data/%010d.bin
@@ -135,7 +136,9 @@ def generate_tree(out, n_frames=FRAMES, seed=0,
     with open(day_dir / "calib_cam_to_cam.txt", "w") as f:
         f.write("calib_time: 09-Jan-2012 13:57:47\n")
         f.write(_line("P_rect_02", p_l) + _line("P_rect_03", p_r)
-                + _line("R_rect_00", np.eye(3)))
+                + _line("R_rect_00", np.eye(3))
+                + _line("S_rect_02", np.array([W0, H0]))
+                + _line("S_rect_03", np.array([W0, H0])))
     with open(day_dir / "calib_velo_to_cam.txt", "w") as f:
         f.write("calib_time: 15-Mar-2012 11:37:16\n")
         f.write(_line("R", velo_to_cam[:3, :3])

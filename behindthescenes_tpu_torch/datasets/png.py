@@ -8,10 +8,11 @@ here (no JAX counterpart; the JAX package calls cv2):
   included), as `cv2.imread(path, cv2.IMREAD_UNCHANGED)` gives them with
   the channels in RGB order;
 - `write_png` writes the same kinds, every row with filter 0 (none);
-- `resize_linear` is `cv2.resize(..., INTER_LINEAR)` on float32 images:
-  half-pixel centres, edge clamp, no antialias when shrinking, the
-  weights in float32 (OpenCV's fixed point applies to 8-bit images only)
-  and each pass a fused lerp;
+- `resize_linear` is `cv2.resize(..., INTER_LINEAR)` on float32 and
+  float64 images, bit-equal: half-pixel centres, edge clamp, no
+  antialias when shrinking; 1, 3 and 4 channels as the Intel IPP that
+  OpenCV 5 calls computes them (fused lerps), 2 channels as OpenCV's own
+  code does (OpenCV's fixed point applies to 8-bit images only);
 - `resize_linear_u8` is `cv2.resize(..., INTER_LINEAR)` on uint8 images,
   in OpenCV's fixed point (11-bit weights and its vertical pass's
   truncations);
@@ -157,43 +158,163 @@ def write_png(path, img: np.ndarray) -> None:
                 + _chunk(b"IEND", b""))
 
 
-def _linear_taps(dst: int, src: int):
-    """OpenCV's INTER_LINEAR taps along one axis: (i0, i1, w), the source
-    position in float64, the weight of i1 then rounded to float32, edges
-    clamped to i0 with weight 0."""
-    scale = 1.0 / (dst / src)
-    f = (np.arange(dst) + 0.5) * scale - 0.5
-    i0 = np.floor(f).astype(np.int64)
-    frac = f - i0
-    edge = (i0 < 0) | (i0 >= src - 1)
+_SPLIT = np.float64(2 ** 27 + 1)  # Veltkamp's splitter for float64
+
+
+def _two_sum(a, b):
+    """s, e with s = fl(a + b) and s + e = a + b exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a, b):
+    """p, e with p = fl(a * b) and p + e = a * b exactly (Dekker)."""
+    p = a * b
+    t = _SPLIT * a
+    ah = t - (t - a)
+    t = _SPLIT * b
+    bh = t - (t - b)
+    al, bl = a - ah, b - bh
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _sum_odd(a, b):
+    """a + b in float64 rounded to odd: an inexact sum takes the
+    neighbour whose last bit is 1 (Boldo and Melquiond), so that one more
+    rounding lands where a single rounding of the exact sum would."""
+    s, e = _two_sum(a, b)
+    fix = (e != 0) & ((s.view(np.int64) & 1) == 0)
+    return np.where(fix, np.nextafter(s, np.where(e > 0, np.inf, -np.inf)),
+                    s)
+
+
+def fma(a, b, c, dtype=np.float64) -> np.ndarray:
+    """a * b + c rounded once to `dtype` (float32 or float64), as a fused
+    multiply-add computes it, in numpy float64 arithmetic."""
+    a, b, c = np.broadcast_arrays(*(np.asarray(v, np.float64)
+                                    for v in (a, b, c)))
+    if np.dtype(dtype) == np.float32:
+        return _sum_odd(a * b, c).astype(np.float32)   # a * b is exact
+    ph, pl = _two_prod(a, b)
+    th, tl = _two_sum(c, ph)
+    return th + _sum_odd(pl, tl)
+
+
+def _ipp_taps(dst: int, src: int, dtype):
+    """IPP's taps along one axis: (i0, i1, w, clamped). The position (d +
+    0.5) * (src / dst) - 0.5 is float64, fused for float64 images; the
+    weight w of i1 is its fraction, rounded to float32 for float32
+    images; positions outside [0, src - 1] read their edge with w = 0."""
+    d = np.arange(dst) + 0.5
+    if dtype == np.float64:
+        p = fma(d, src / dst, -0.5)
+    else:
+        p = d * (src / dst) - 0.5
+    i0 = np.floor(p).astype(np.int64)
+    w = p - i0
+    clamped = (i0 < 0) | (i0 >= src - 1)
+    w[clamped] = 0
     i0 = np.clip(i0, 0, src - 1)
-    frac[edge] = 0.0
-    return i0, np.minimum(i0 + 1, src - 1), frac.astype(np.float32)
+    return i0, np.minimum(i0 + 1, src - 1), w.astype(dtype), clamped
 
 
-def _lerp(a, b, w):
-    """a + (b - a) * w in float32 with one rounding of the product and the
-    sum, as OpenCV's fused multiply-add (the product of two float32 values
-    is exact in float64)."""
-    return (a + (b - a).astype(np.float64) * w).astype(np.float32)
+def _ipp_lerp(a, b, w):
+    """a + (b - a) * w with one rounding of the product and the sum."""
+    return fma(b - a, w, a, a.dtype)
+
+
+def _ipp_split_edges(run: int, channels: int) -> np.ndarray:
+    """Which samples of a run of `run` clamped columns (left to right,
+    at either edge) IPP's float32 vertical pass rounds twice, as (run,
+    channels) booleans: its loop takes blocks of 16 columns (rounded
+    twice with 4 channels, once with 3), then a remainder of 5 or more
+    columns (twice, with 3 channels only in the first two); a shorter
+    remainder, and every column with one channel, once."""
+    split = np.zeros((run, channels), bool)
+    if channels not in (3, 4):
+        return split
+    whole = run - run % 16
+    if channels == 4:
+        split[:whole] = True
+    if run - whole >= 5:
+        split[whole:, :2 if channels == 3 else 4] = True
+    return split
+
+
+def _resize_ipp(img: np.ndarray, size) -> np.ndarray:
+    """cv2.resize's float INTER_LINEAR for 1, 3 and 4 channels, which
+    OpenCV hands to Intel IPP: each row, then each column, a fused lerp;
+    the clamped columns of the vertical pass as `_ipp_split_edges`."""
+    h, w = size
+    img3 = img.reshape(img.shape[:2] + (-1,))
+    x0, x1, wx, clamped = _ipp_taps(w, img.shape[1], img.dtype)
+    y0, y1, wy, _ = _ipp_taps(h, img.shape[0], img.dtype)
+    rows = _ipp_lerp(img3[:, x0], img3[:, x1], wx[None, :, None])
+    a, b = rows[y0], rows[y1]
+    out = _ipp_lerp(a, b, wy[:, None, None])
+    if img.dtype == np.float32:
+        # Columns are clamped at each edge, never all (src >= 2).
+        left, right = int(np.argmin(clamped)), int(np.argmin(clamped[::-1]))
+        split = np.zeros((w, img3.shape[2]), bool)
+        split[:left] = _ipp_split_edges(left, img3.shape[2])
+        split[w - right:] = _ipp_split_edges(right, img3.shape[2])
+        twice = (a + ((b - a) * wy[:, None, None]).astype(img.dtype)) \
+            .astype(img.dtype)
+        out = np.where(split[None], twice, out)
+    return out.reshape((h, w) + img.shape[2:])
+
+
+def _opencv_taps(dst: int, src: int, clamp: bool):
+    """OpenCV's own taps along one axis: (i0, i1, w) with the position
+    rounded to float32 and w, the weight of i1, its fraction there.
+    Columns (`clamp`) read their edge with w = 0 outside [0, src - 1];
+    rows keep their weight and clamp only the two source indices."""
+    p = ((np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5) \
+        .astype(np.float32)
+    i0 = np.floor(p).astype(np.int64)
+    w = (p - i0.astype(np.float32)).astype(np.float32)
+    if clamp:
+        w[(i0 < 0) | (i0 >= src - 1)] = 0
+        i0 = np.clip(i0, 0, src - 1)
+    return np.clip(i0, 0, src - 1), np.clip(i0 + 1, 0, src - 1), w
+
+
+def _resize_opencv(img: np.ndarray, size) -> np.ndarray:
+    """cv2.resize's float INTER_LINEAR in OpenCV's own code (2 channels):
+    each pass a * (1 - w) + b * w with float32 weights, each product and
+    the sum rounded in the image's type."""
+    h, w = size
+    x0, x1, wx = _opencv_taps(w, img.shape[1], True)
+    y0, y1, wy = _opencv_taps(h, img.shape[0], False)
+
+    def lerp(a, b, wt):
+        w0 = (np.float32(1) - wt).astype(img.dtype)
+        return a * w0 + b * wt.astype(img.dtype)
+
+    rows = lerp(img[:, x0], img[:, x1], wx[None, :, None])
+    return lerp(rows[y0], rows[y1], wy[:, None, None])
 
 
 def resize_linear(img: np.ndarray, size) -> np.ndarray:
-    """cv2.resize(img, (w, h), interpolation=INTER_LINEAR) of a float32
-    image (h0, w0[, c]) with at least two rows and columns to size =
-    (h, w): each row first, then each column, each a float32 lerp of two
-    taps (bit-equal to OpenCV 5's)."""
+    """cv2.resize(img, (w, h), interpolation=INTER_LINEAR) of a float32 or
+    float64 image (h0, w0[, c]) with at least two rows and columns to
+    size = (h, w), bit-equal to OpenCV 5 built with IPP: half-pixel
+    centres, edge clamp, no antialias when shrinking; 1, 3 and 4 channels
+    as IPP computes them (`_resize_ipp`), 2 as OpenCV's own code
+    (`_resize_opencv`)."""
     img = np.asarray(img)
-    if img.dtype != np.float32:
-        raise ValueError("resize_linear takes float32 images (OpenCV "
-                         "rounds 8-bit ones in fixed point: "
+    if img.dtype not in (np.float32, np.float64):
+        raise ValueError("resize_linear takes float32 or float64 images "
+                         "(OpenCV rounds 8-bit ones in fixed point: "
                          "resize_linear_u8)")
-    h, w = size
-    x0, x1, wx = _linear_taps(w, img.shape[1])
-    y0, y1, wy = _linear_taps(h, img.shape[0])
-    extra = (None,) * (img.ndim - 2)
-    rows = _lerp(img[:, x0], img[:, x1], wx[(None, slice(None)) + extra])
-    return _lerp(rows[y0], rows[y1], wy[(slice(None), None) + extra])
+    channels = img.shape[2] if img.ndim == 3 else 1
+    if img.ndim not in (2, 3) or channels > 4 or min(img.shape[:2]) < 2:
+        raise ValueError(f"resize_linear takes (h, w[, c <= 4]) images of "
+                         f"at least 2 x 2, not {img.shape}")
+    if channels == 2:
+        return _resize_opencv(img, size)
+    return _resize_ipp(img, size)
 
 
 def _linear_taps_u8(dst: int, src: int, clamp: bool):

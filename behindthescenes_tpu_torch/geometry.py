@@ -137,6 +137,67 @@ def look_at(origin, target, world_up=(0.0, 1.0, 0.0)) -> np.ndarray:
     return c2w
 
 
+def _matrix_to_quat(rot: np.ndarray) -> np.ndarray:
+    """Rotation matrices (..., 3, 3) -> unit quaternions (x, y, z, w) in
+    float64 by the larger of the trace and the diagonal (Markley's method,
+    as scipy's Rotation.from_matrix)."""
+    rot = np.asarray(rot, np.float64)
+    m = rot.reshape(-1, 3, 3)
+    diag = np.stack([m[:, 0, 0], m[:, 1, 1], m[:, 2, 2]], -1)
+    pick = np.argmax(np.concatenate([diag, diag.sum(-1, keepdims=True)],
+                                    -1), -1)
+    q = np.empty((len(m), 4))
+    for n, k in enumerate(pick):
+        r = m[n]
+        if k == 3:
+            q[n] = [r[2, 1] - r[1, 2], r[0, 2] - r[2, 0], r[1, 0] - r[0, 1],
+                    1 + r[0, 0] + r[1, 1] + r[2, 2]]
+        else:
+            i, j, l = k, (k + 1) % 3, (k + 2) % 3
+            q[n, i] = 1 - r[0, 0] - r[1, 1] - r[2, 2] + 2 * r[i, i]
+            q[n, j] = r[j, i] + r[i, j]
+            q[n, l] = r[l, i] + r[i, l]
+            q[n, 3] = r[l, j] - r[j, l]
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    return q.reshape(rot.shape[:-2] + (4,))
+
+
+def _quat_mul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Hamilton products of (x, y, z, w) quaternions."""
+    av, aw = a[..., :3], a[..., 3:]
+    bv, bw = b[..., :3], b[..., 3:]
+    return np.concatenate([aw * bv + bw * av + np.cross(av, bv),
+                           aw * bw - np.sum(av * bv, -1, keepdims=True)], -1)
+
+
+def _quat_to_matrix(q: np.ndarray) -> np.ndarray:
+    x, y, z, w = np.moveaxis(q, -1, 0)
+    rot = np.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+    ], -1)
+    return rot.reshape(q.shape[:-1] + (3, 3))
+
+
+def slerp_rotations(rot_a, rot_b, ts) -> np.ndarray:
+    """Rotation matrices (len(ts), 3, 3) in float64 on the shortest arc
+    from rot_a (t = 0) to rot_b (t = 1), as scipy's
+    `Slerp([0, 1], Rotation.from_matrix([rot_a, rot_b]))(ts).as_matrix()`
+    computes them (the relative rotation's rotation vector scaled by t),
+    in numpy: the port runs without scipy."""
+    qa, qb = _matrix_to_quat(np.stack([rot_a, rot_b]))
+    rel = _quat_mul(qa * [-1, -1, -1, 1], qb)
+    if rel[3] < 0:
+        rel = -rel
+    norm = np.linalg.norm(rel[:3])
+    angle = 2 * np.arctan2(norm, rel[3])
+    axis = rel[:3] / norm if norm > 0 else np.zeros(3)
+    half = np.asarray(ts, np.float64)[:, None] * angle / 2
+    step = np.concatenate([np.sin(half) * axis, np.cos(half)], -1)
+    return _quat_to_matrix(_quat_mul(qa[None], step))
+
+
 def coord_from_blender() -> np.ndarray:
     """Blender -> standard coordinates (reference util.py:152-163)."""
     return np.array([[1, 0, 0, 0], [0, 0, 1, 0], [0, -1, 0, 0],

@@ -14,7 +14,9 @@ Checkpoints are the port's own: a step directory `<dir>/<step>/` holds
 BatchNorm statistics, Adam's state, the accumulated gradient and the
 counters), `<dir>/extra_<step>.json` the render scheduler, and the newest
 `max_to_keep` steps are kept. The JAX package's orbax step directories
-(`<step>/default/`) are not read.
+(`<step>/default/`) are not read here: tools/orbax_to_port.py turns one
+into a step directory of the port (`state_from_jax`), and the run then
+resumes from it.
 
 Under a trainer of several ranks (data parallel, `BTSTrainer.group`)
 every rank runs the loop on its own loader and restores the same
@@ -42,6 +44,8 @@ import torch
 
 from behindthescenes_tpu_torch.parallel.mesh import any_rank, barrier, sum_host
 from behindthescenes_tpu_torch.training.trainer import BTSTrainer
+from behindthescenes_tpu_torch.weights import (_to_torch_layout, flax_key,
+                                               state_dict_from_flat)
 
 log = logging.getLogger("bts_torch")
 
@@ -118,6 +122,72 @@ class HarnessConfig:
         )
 
 
+def _flatten(tree, prefix: str) -> dict:
+    """A nested dict of arrays -> {prefix + slash-joined keys: a writable
+    copy of the array}."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_flatten(value, f"{prefix}{key}/"))
+        else:
+            out[prefix + key] = np.array(value)
+    return out
+
+
+def state_from_jax(tree: dict, trainer: BTSTrainer,
+                   extra: Optional[dict] = None) -> dict:
+    """The port's `BTSTrainer.state_dict()` of a JAX package's checkpoint,
+    with numpy alone. `tree` is what the JAX `CheckpointManager` saves and
+    `restore_replicated` returns (behindthescenes_tpu/training/harness.py:
+    124-127), its leaves as arrays: params, batch_stats, step, and
+    opt_state, optax's adam state list [{count, mu, nu}, {count}] (its
+    schedule's), inside optax.MultiSteps' {mini_step, gradient_step,
+    inner_opt_state, acc_grads} when the run accumulates. `trainer` (the
+    port's, on the same config, after init_state) gives the parameters'
+    names and order and the optimiser's groups; `extra` is the step's
+    `extra_<step>.json` (the render scheduler), kept as it is.
+
+    Parameters and BatchNorm statistics map through weights.torch_name;
+    Adam's mu and nu become torch Adam's exp_avg and exp_avg_sq, its
+    count the step of every parameter; MultiSteps' mini_step, gradient
+    step and acc_grads become the port's mini_step, updates and
+    acc_grads; `step` counts micro-steps on both sides."""
+    flat = {**_flatten(tree["params"], "params/"),
+            **_flatten(tree.get("batch_stats") or {}, "batch_stats/")}
+    opt = tree["opt_state"]
+    multi = isinstance(opt, dict) and "inner_opt_state" in opt
+    adam = (opt["inner_opt_state"] if multi else opt)[0]
+    count = int(np.asarray(adam["count"]))
+    if multi != (trainer.accumulate_steps > 1):
+        raise ValueError(f"the checkpoint's optimiser state "
+                         f"{'has' if multi else 'has no'} optax.MultiSteps "
+                         f"accumulator; the config's accumulate_steps is "
+                         f"{trainer.accumulate_steps}")
+    scales = trainer.net.encoder.scales
+    mu = _flatten(adam["mu"], "params/")
+    nu = _flatten(adam["nu"], "params/")
+    acc = _flatten(opt["acc_grads"], "params/") if multi else None
+
+    def port(moments, name):
+        key, kind = flax_key(name, scales)
+        return torch.from_numpy(np.ascontiguousarray(_to_torch_layout(
+            moments[key].astype(np.float32, copy=False), kind)))
+
+    optimizer = trainer.optimizer.state_dict()
+    names = [n for n, _ in trainer.net.named_parameters()]
+    optimizer["state"] = {} if count == 0 else {
+        i: {"step": torch.tensor(float(count)), "exp_avg": port(mu, n),
+            "exp_avg_sq": port(nu, n)} for i, n in enumerate(names)}
+    updates = int(np.asarray(opt["gradient_step"])) if multi else count
+    return {"net": state_dict_from_flat(flat), "optimizer": optimizer,
+            "acc_grads": {n: port(acc, n) for n in names} if multi
+            else None,
+            "mini_step": int(np.asarray(opt["mini_step"])) if multi else 0,
+            "updates": updates, "step": int(np.asarray(tree["step"])),
+            "render_sched": (extra or {}).get(
+                "render_sched", trainer.scheduler.state_dict())}
+
+
 class CheckpointManager:
     """Step directories `<directory>/<step>/state.pt` of the trainer's
     state, the newest `max_to_keep` kept, and host-side extras
@@ -137,7 +207,8 @@ class CheckpointManager:
         if os.path.isdir(os.path.join(path, "default")):
             raise NotImplementedError(
                 f"{path} is an orbax step directory of the JAX package, "
-                "which the port does not read (ROADMAP: orbax directories)")
+                "which the port does not read: convert it with "
+                "tools/orbax_to_port.py (where jax and orbax are installed)")
         return False
 
     def all_steps(self) -> list:

@@ -136,6 +136,19 @@ it 10 bf16 steps, and extracts the example image's mesh at 64^3 and
 128^3, the 64^3 volume and triangle count held to the JAX package's
 (media/reference/mesh_k360.npz, tools/mesh_reference.py).
 
+Phases 27-28 run the last user-facing commands on the KITTI-360 gate
+drive of phases 14-16: phase 27 `-cn eval_kitti_360_depth` and `-cn
+eval_kitti_360_nvs` with k360_synth_conv.npz at full size (means within
+JAX_GAP of the JAX package's CPU means, tools/k360_eval_reference.py;
+the depth config's shared_z launches held to the plain version; frame
+ms split into encode and render; peak memory); phase 28 the three video
+scripts (`python -m behindthescenes_tpu_torch.scripts.gen_vid_nvs`,
+`gen_vid_transition`, `gen_vid_seq`) with `-cn exp_kitti_360` on a few
+poses and items each, every Motion-JPEG AVI read back (frame count and
+size), gen_vid_seq's jitter_density launches held to the plain version,
+and each script's ms a frame split into encode, render and the host's
+JPEG encode.
+
 Prints one progress line per phase (flushed, with the phase's seconds),
 then a JSON line of frame times, metrics and training times, one JSON line
 with a record per kernel, the card's name and power limit, and as the
@@ -281,7 +294,8 @@ DEPTH_GATES = {"eval_synthetic": {"abs_rel": 0.21, "a1": 0.63},
 # (exp_synthetic's ResnetFC is 32 wide, exp_kitti_raw's 64; bf16, so
 # shared_z takes bf16 inputs).
 KERNEL_ROWS = {"eval_synthetic": ("shared_z", "shared_z_bf16", 32),
-               "eval_depth": ("shared_z", "shared_z_bf16", 64)}
+               "eval_depth": ("shared_z", "shared_z_bf16", 64),
+               "eval_kitti_360_depth": ("shared_z", "shared_z_bf16", 64)}
 # Timed NVS frames per config (after one untimed frame).
 NVS_TIMED_FRAMES = 5
 # Phase 13 (tests/test_fine_gate_thin.py:41,103): the thin-structure
@@ -418,7 +432,7 @@ DISK_RUNS = (
 KRAW_LAUNCH_SHAPE = (192 * 640, 64)
 # Depth configs whose frame is split into encode and render by CUDA
 # events (the NVS configs are split always).
-DEPTH_FRAME_SPLIT = ("eval_depth",)
+DEPTH_FRAME_SPLIT = ("eval_depth", "eval_kitti_360_depth")
 # Phases 19 and 20's training runs at the configs' own widths
 # (exp_kitti_raw: batch 8 x accumulate_steps 2, 4 views an item, 2048
 # patch rays x 64 samples; exp_re10k: batch 12 x 2, 3 views, random
@@ -483,6 +497,33 @@ DEMO_SIGMA_RTOL = 1e-2
 DEMO_DEPTH_MEDIAN_REL = 0.02
 DEMO_IMGS_INDICES = (0, 1)
 DEMO_TIMED = 10
+
+# Phase 27: -cn eval_kitti_360_depth and -cn eval_kitti_360_nvs with
+# K360_WEIGHTS on the gate drive of phases 14-16 (34 frames, test
+# keyframes 2, 5, 8 and 11, the fisheye frames at rotation [0, -15] that
+# phase 16 preprocessed) at full size (192x640, 64 samples, bf16), through
+# the port's task runner, each held within JAX_GAP of the JAX package's
+# CPU means for the same command on the same drive (`JAX_PLATFORMS=cpu
+# python3 tools/k360_eval_reference.py`: the drive 80 s, depth 69 s, NVS
+# 218 s on an 8-core x86 CPU). The depth config decodes through the
+# shared-z ladder (exp_kitti_360.yaml's code_mode z): one shared_z launch
+# a keyframe at bf16 and H = 64 on a frame's rays (KERNEL_ROWS,
+# KRAW_LAUNCH_SHAPE); the NVS config launches no decode kernel.
+K360_EVAL_RUNS = (
+    ("eval_kitti_360_depth", {"abs_rel": 0.135668920353055,
+                              "a1": 0.8857511686492704}),
+    ("eval_kitti_360_nvs", {"psnr": 18.308118298253085,
+                            "ssim": 0.7404862082456188}),
+)
+# Phase 28: the three video scripts with -cn exp_kitti_360 and
+# K360_WEIGHTS on the same drive: gen_vid_nvs on test item 0 along the
+# first VIDEO_POSES poses of the committed trajectory, gen_vid_transition
+# with VIDEO_POSES frames, gen_vid_seq over the drive's test items; each
+# Motion-JPEG AVI read back by utils/video.read_video (frame count and
+# size); gen_vid_seq's depth one jitter_density launch an item (bf16,
+# H = 64, 64 samples), each held to the plain version.
+VIDEO_TRAJECTORY = "scripts/videos/trajectories/simple_movement.npy"
+VIDEO_POSES = 6
 
 _T0 = time.perf_counter()
 
@@ -2000,15 +2041,21 @@ def build_tree(module: str, tree: str, args=()) -> dict:
 
 
 @contextlib.contextmanager
-def timed_calls(owner, attr: str, seconds: list):
-    """owner.attr wrapped so that each call appends its seconds."""
+def timed_calls(owner, attr: str, seconds: list, sync=None):
+    """owner.attr wrapped so that each call appends its seconds, with
+    sync() (the card's synchronize) called before and after it where
+    given."""
     fn = getattr(owner, attr)
 
     def timed(*args, **kwargs):
+        if sync:
+            sync()
         t0 = time.perf_counter()
         try:
             return fn(*args, **kwargs)
         finally:
+            if sync:
+                sync()
             seconds.append(time.perf_counter() - t0)
     setattr(owner, attr, timed)
     try:
@@ -3186,6 +3233,162 @@ def spatial_phase(dev, card: str, clock_fn, batches, train_conf: dict,
     return out
 
 
+def gate_tree_overrides(tree: str) -> tuple:
+    """The data paths of a command on the gate drive `tree`."""
+    return (f"data.data_path={tree}",
+            f"data.pose_path={os.path.join(tree, 'data_poses')}",
+            f"data.split_path={os.path.join(tree, 'splits')}")
+
+
+def k360_eval_phase(tree: str, dev, card: str, clock_fn, extra=(),
+                    runs=K360_EVAL_RUNS) -> tuple:
+    """Phase 27: each config of `runs` with K360_WEIGHTS on the gate drive
+    `tree` (and the cut `extra`) through `config_phase`: the means within
+    JAX_GAP of JAX's, the depth config's shared_z launches (one a
+    keyframe, bf16, H = 64, on KRAW_LAUNCH_SHAPE) each held to the plain
+    version, the NVS config's none; frame ms split into encode and render;
+    peak memory. Prints and returns ({config: record}, the depth config's
+    first launch (args, kwargs))."""
+    out, launch = {}, None
+    for name, jax_means in runs:
+        t = time.perf_counter()
+        res = config_phase(name, K360_WEIGHTS, jax_means, dev, clock_fn(),
+                           (*gate_tree_overrides(tree), *extra))
+        first = res.pop("launch", None)
+        launched = res["launches"]
+        if name in KERNEL_ROWS:
+            hs, hd = first[0][0], first[0][1]
+            if (hs.shape[0], hd.shape[0]) != KRAW_LAUNCH_SHAPE or \
+                    str(hs.dtype) != "torch.bfloat16":
+                raise AssertionError(f"{name}: shared_z launched on "
+                                     f"{tuple(hs.shape)} x "
+                                     f"{tuple(hd.shape)} {hs.dtype}, want "
+                                     f"{KRAW_LAUNCH_SHAPE} bf16")
+            launch = first
+        elif any(launched.values()):
+            raise AssertionError(f"{name} launched decode kernels: "
+                                 f"{launched}")
+        out[name] = res
+        keys, peak, fm = list(jax_means), res["peak_memory"], res["frame_ms"]
+        print(f"[chip_smoke] {name} on the gate drive ({card}): "
+              + ", ".join(f"{k} {res['means'][k]:.6f} (JAX on the CPU "
+                          f"{jax_means[k]:.6f}, gap {res['gap_' + k]:+.6f}, "
+                          f"bound {JAX_GAP[k]})" for k in keys)
+              + f"; {len(res['per_scene'])} keyframes; decode kernel "
+              f"launches {json.dumps(launched)}"
+              + (f" (max abs deviation from the plain version "
+                 f"{max(res['max_abs_err']):.3e})" if "max_abs_err" in res
+                 else "")
+              + f"; frame median {fm['frame']:.3f} ms (encode "
+              f"{fm['encode']:.3f}, render {fm['render']:.3f}); peak memory "
+              + ("not measured" if peak is None
+                 else f"{peak / 2**30:.2f} GiB"), flush=True)
+        log(f"phase 27 {name}", "within the bounds of JAX's means", t)
+    return out, launch
+
+
+def video_phase(tree: str, dev, card: str, extra=(),
+                poses: int = VIDEO_POSES) -> tuple:
+    """Phase 28: gen_vid_nvs (test item 0, the first `poses` poses of
+    VIDEO_TRAJECTORY), gen_vid_transition (`poses` frames) and gen_vid_seq
+    (every test item) with -cn exp_kitti_360, K360_WEIGHTS and the gate
+    drive `tree` (and the cut `extra`) through their main() into a
+    temporary directory, each with the decode kernels' launches counted
+    from 0 and its stages timed (timed_calls). Raises unless each AVI
+    reads back (read_video) with the frames' count and size, the frames
+    are finite, gen_vid_seq launched jitter_density once an item and
+    nothing else (each launch within tolerance of the plain version) and
+    the other two no decode kernel. Prints and returns (the record,
+    gen_vid_seq's first launch (args, kwargs))."""
+    import numpy as np
+    import torch
+    from behindthescenes_tpu_torch import inference
+    from behindthescenes_tpu_torch.models.bts import BTSNet
+    from behindthescenes_tpu_torch.ops import kernels
+    from behindthescenes_tpu_torch.scripts import (gen_vid_nvs, gen_vid_seq,
+                                                   gen_vid_transition)
+    from behindthescenes_tpu_torch.scripts import inference_setup as iset
+    from behindthescenes_tpu_torch.utils import video
+    # A frame's stages, timed where the scripts call them: the encode,
+    # the render (the novel views; the depth and the BEV profile) and
+    # the host's JPEG encode.
+    stages = (("encode", BTSNet, "encode"),
+              ("render", inference, "render_poses"),
+              ("render_depth", iset, "render_depth"),
+              ("render_profile", iset, "render_profile"),
+              ("jpeg", video, "encode_jpeg"))
+    sync = torch.cuda.synchronize if torch.device(dev).type == "cuda" \
+        else None
+    out, seq_launch = {"card": card}, None
+    common = ["-cn", "exp_kitti_360", "--checkpoint", K360_WEIGHTS,
+              "--device", str(dev), *gate_tree_overrides(tree), *extra]
+    with tempfile.TemporaryDirectory(prefix="videos_") as tmp:
+        traj = os.path.join(tmp, "trajectory.npy")
+        np.save(traj, np.load(VIDEO_TRAJECTORY)[:poses])
+        runs = (("gen_vid_nvs", gen_vid_nvs,
+                 ["--index", "0", "--trajectory", traj], 2),
+                ("gen_vid_transition", gen_vid_transition,
+                 ["--index", "0", "--n-frames", str(poses)], 1),
+                ("gen_vid_seq", gen_vid_seq,
+                 ["--from-idx", "0", "--to-idx", "1000"], 3))
+        for script, module, args, panels in runs:
+            t = time.perf_counter()
+            path = os.path.join(tmp, f"{script}.avi")
+            kernels.reset_launch_counts()
+            secs = {stage: [] for stage, _, _ in stages}
+            with contextlib.ExitStack() as timers, \
+                    recorded_kernel_args() as (_, state):
+                for stage, owner, attr in stages:
+                    timers.enter_context(timed_calls(owner, attr,
+                                                     secs[stage], sync))
+                state["mode"], state["calls"] = script, []
+                t0 = time.perf_counter()
+                frames = module.main([*common, *args, "--out", path])
+                wall = time.perf_counter() - t0
+            launched = kernels.launch_counts()
+            t0 = time.perf_counter()
+            back = video.read_video(path)
+            read_s = time.perf_counter() - t0
+            n, (h, w) = len(frames), frames[0].shape[:2]
+            want_n = len(secs["render_depth"]) if script == "gen_vid_seq" \
+                else poses
+            want = {k: n if script == "gen_vid_seq" and
+                    k == "jitter_density" else 0 for k in launched}
+            if n != want_n or back.shape != (n, h, w, 3) or \
+                    w % panels or launched != want or \
+                    not all(np.isfinite(f).all() for f in frames):
+                raise AssertionError(
+                    f"{script}: {n} frames of {h}x{w} (want {want_n} of "
+                    f"{panels} panels), read back {back.shape}, launches "
+                    f"{launched} (want {want})")
+            res = {"frames": n, "size": [h, w], "launches": launched,
+                   "seconds": wall, "read_back_s": read_s,
+                   "avi_bytes": os.path.getsize(path)}
+            per_frame = {stage: 1e3 * sum(v) / n for stage, v in secs.items()
+                         if v}
+            res["ms_per_frame"] = dict(per_frame, frame=1e3 * wall / n)
+            if script == "gen_vid_seq":
+                res["max_abs_err"] = [
+                    against_plain("jitter_density", name, a, kw,
+                                  f"{script} launch {i}")[0]
+                    for i, (name, a, kw) in enumerate(state["calls"])]
+                res["launch_shapes"] = [list(a[0].shape)
+                                        for _, a, _ in state["calls"]]
+                seq_launch = state["calls"][0][1:]
+            out[script] = res
+            print(f"[chip_smoke] {script} -cn exp_kitti_360 ({card}): {n} "
+                  f"frames of {h}x{w} in {wall:.1f} s, read back "
+                  f"({res['avi_bytes'] / 1e6:.2f} MB AVI) in {read_s:.1f} s;"
+                  f" a frame " + ", ".join(
+                      f"{k} {v:.1f}" for k, v in res["ms_per_frame"].items())
+                  + f" ms; decode kernel launches {json.dumps(launched)}"
+                  + (f" (max abs deviation from the plain version "
+                     f"{max(res['max_abs_err']):.3e})"
+                     if "max_abs_err" in res else ""), flush=True)
+            log(f"phase 28 {script}", "written and read back", t)
+    return out, seq_launch
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3392,7 +3595,7 @@ def main() -> None:
     # -- 14, 15: KITTI-360 occupancy on the gate drive ---------------------
     from behindthescenes_tpu_torch.datasets.gen_synthetic_kitti_360 import \
         GATE_FRAMES, make_gate_tree
-    # The drive lives until phase 24 has read it too.
+    # The drive lives until phases 24, 27 and 28 have read it too.
     k360_tree = tempfile.TemporaryDirectory(prefix="k360_gate_")
     tree = k360_tree.name
     t = time.perf_counter()
@@ -3475,7 +3678,6 @@ def main() -> None:
     t = time.perf_counter()
     parallel = parallel_phase(dev, card, conf, WEIGHTS, batch, draws,
                               batches, tree)
-    k360_tree.cleanup()
     log("phase 24 multi-GPU", f"world {PARALLEL_WORLD} ({parallel['backend']}"
         ") within its bounds of world 1", t)
 
@@ -3486,6 +3688,33 @@ def main() -> None:
     spatial = spatial_phase(dev, card, cuda_clock, batches, conf, batch,
                             draws)
 
+    # -- 27, 28: the KITTI-360 eval configs and the videos on the drive ----
+    k360_eval, k360_launch = k360_eval_phase(tree, dev, card, cuda_clock)
+    videos, seq_launch = video_phase(tree, dev, card)
+    k360_tree.cleanup()
+    t = time.perf_counter()
+    for name, kernel, rec, (args, kwargs), launches, errs, mode in (
+            ("shared_z_bf16_kitti_360", "shared_z", "shared_z_bf16",
+             k360_launch,
+             k360_eval["eval_kitti_360_depth"]["launches"]["shared_z"],
+             k360_eval["eval_kitti_360_depth"]["max_abs_err"],
+             "eval_kitti_360_depth"),
+            ("jitter_density_vid_seq", "jitter_density", "jitter_density",
+             seq_launch,
+             videos["gen_vid_seq"]["launches"]["jitter_density"],
+             videos["gen_vid_seq"]["max_abs_err"],
+             "gen_vid_seq exp_kitti_360")):
+        piece = shared_z_bf16_piece(64, args[1].shape[0]) \
+            if kernel == "shared_z" \
+            else f"jitter_density_kernelILi{args[1].shape[1]}E"
+        found = [v for k, v in ptxas.items() if piece in k]
+        if len(found) != 1:
+            raise AssertionError(f"ptxas report: {len(found)} kernels match "
+                                 f"{piece}")
+        records.append(kernel_record(name, rec, kernel, args, kwargs,
+                                     launches, max(errs), mode, found[0]))
+    log("phase 27-28 kernel timing", f"their kernels, {card}", t)
+
     print(json.dumps({"frame_ms": frame_ms, "encode_ms": encode_ms,
                       "serving": serving, "general_path": general["means"],
                       "train_parity": parity, "training": training,
@@ -3495,7 +3724,8 @@ def main() -> None:
                       "disk_benchmarks": disk, "sweep": sweep_res,
                       "tile_fetch": tile_res, "demos": demos,
                       "parallel": parallel, "extra_data": extra,
-                      "spatial": spatial}),
+                      "spatial": spatial, "k360_eval": k360_eval,
+                      "videos": videos}),
           flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)

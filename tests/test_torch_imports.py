@@ -178,3 +178,17 @@ def test_source_scan_covers_the_other_loaders_and_model_extras():
         ("datasets", "gen_synthetic_waymo.py"),
         ("models", "resnet3dconv.py"), ("ops", "layers_extra.py"),
         ("utils", "recon.py"), ("utils", "metrics_extra.py"))} <= scanned
+
+
+def test_source_scan_covers_the_video_scripts_and_the_writer():
+    """The scan and the blocked-import probe reach the three video
+    scripts, the Motion-JPEG writer that replaces cv2.VideoWriter and the
+    ORB-SLAM settings script. tools/orbax_to_port.py is outside the port
+    and exempt: it restores the JAX package's orbax checkpoints, so it
+    runs where jax and orbax are, and only its output reaches the
+    port."""
+    scanned = {os.path.relpath(p, PORT) for p in _sources()}
+    assert {os.path.join(*f) for f in (
+        ("utils", "video.py"), ("scripts", "gen_vid_nvs.py"),
+        ("scripts", "gen_vid_transition.py"), ("scripts", "gen_vid_seq.py"),
+        ("scripts", "gen_orbslam_settings.py"))} <= scanned
