@@ -1,0 +1,6 @@
+"""Device: 1 - busy / wall over the traced stretch of micro-steps, in %."""
+from port_bench import readers
+
+
+def read(run):
+    return readers.idle_share(run)

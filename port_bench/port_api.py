@@ -1,0 +1,87 @@
+"""Everything the benchmark takes from the program under test, the port
+(`behindthescenes_tpu_torch`): its trainer, its depth evaluator and its
+kernel library. No other file of the benchmark
+imports the port, and the reference imports none of it.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def import_program() -> None:
+    """Import the modules of the program that a run drives."""
+    import behindthescenes_tpu_torch.evaluation.depth  # noqa: F401
+    import behindthescenes_tpu_torch.training.trainer  # noqa: F401
+
+
+def exact_f32() -> None:
+    from behindthescenes_tpu_torch.platform import exact_f32 as pin
+    pin()
+
+
+def kernel_library() -> None:
+    """Build (first run in a checkout) or load the port's CUDA kernels."""
+    from behindthescenes_tpu_torch.ops.kernels import _build
+    _build.library()
+
+
+def make_trainer(conf: dict, weights: dict, device):
+    """The port's BTSTrainer for `conf` on `device`, its net loaded with
+    `weights` (strict), a fresh Adam and accumulator, every counter at 0
+    (what `BTSTrainer.init_state` leaves, with the weights given as
+    tensors instead of its initialiser's)."""
+    from behindthescenes_tpu_torch.training.trainer import (BTSTrainer,
+                                                            make_optimizer)
+    trainer = BTSTrainer(conf, device=device)
+    trainer.net.to(device)
+    trainer.net.load_state_dict(weights, strict=True)
+    trainer.optimizer, trainer.lr_schedule = make_optimizer(
+        conf, trainer.net.parameters())
+    trainer.step = trainer.updates = trainer.mini_step = 0
+    trainer.acc_grads = None
+    if trainer.accumulate_steps > 1:
+        trainer.acc_grads = {n: torch.zeros_like(p)
+                             for n, p in trainer.net.named_parameters()}
+    return trainer
+
+
+def port_draws(draws: dict):
+    """The benchmark's draws of one micro-step as the port's `Draws`."""
+    from behindthescenes_tpu_torch.ray_sampler import PatchDraws
+    from behindthescenes_tpu_torch.training.wrapper import Draws
+    return Draws(flip=draws["flip"],
+                 rays=PatchDraws(views=draws["views"], ys=draws["ys"],
+                                 xs=draws["xs"]),
+                 z_jitter=draws["z_jitter"])
+
+
+def first_gradient(trainer) -> dict:
+    """{name: gradient} as the optimizer holds it after the first
+    micro-step: the accumulator's mean of one gradient, or, without
+    accumulation, Adam's first moment over (1 - beta1)."""
+    if trainer.acc_grads is not None:
+        return dict(trainer.acc_grads)
+    out = {}
+    state = trainer.optimizer.state
+    for name, p in trainer.net.named_parameters():
+        m = state[p]["exp_avg"] if p in state else torch.zeros_like(p)
+        out[name] = m / 0.1
+    return out
+
+
+def parameters(trainer) -> dict:
+    return dict(trainer.net.named_parameters())
+
+
+def make_depth_evaluator(conf: dict, weights: dict, device):
+    """The port's DepthEvaluator on a BTSNet of `conf` in the compute
+    dtype the evaluation config states, loaded with `weights`."""
+    from behindthescenes_tpu_torch import renderer as renderer_lib
+    from behindthescenes_tpu_torch.evaluation.depth import DepthEvaluator
+    from behindthescenes_tpu_torch.models.bts import BTSNet
+    dtype = torch.bfloat16 if conf.get("bf16", True) else torch.float32
+    net = BTSNet.from_conf(conf["model_conf"], compute_dtype=dtype)
+    net.to(device).eval()
+    net.load_state_dict(weights, strict=True)
+    cfg = renderer_lib.RendererConfig.from_conf(conf["renderer"])
+    return DepthEvaluator(net, cfg, conf["model_conf"])
