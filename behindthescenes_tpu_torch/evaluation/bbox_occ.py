@@ -17,9 +17,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from behindthescenes_tpu_torch import tracing
 from behindthescenes_tpu_torch.datasets.kitti_360_labels import id2label
 from behindthescenes_tpu_torch.evaluation.lidar_occ import (
-    OccupancyQuery, _grid_sample_nearest_ac_true, occupancy_metrics)
+    OCC_STAGES, OccupancyQuery, _grid_sample_nearest_ac_true,
+    occupancy_metrics)
 
 EPS = 1e-4
 
@@ -151,60 +153,62 @@ class BBoxOccEvaluator(OccupancyQuery):
         z_samp (h//2 * w//2, n_coarse). mark(name) is called after
         "encode", "render", "query" and "ground_truth". Returns the metric
         dict (python floats)."""
-        dev = next(self.net.parameters()).device
-        images = torch.as_tensor(batch["imgs"], device=dev)
-        if images.shape[0] != 1:
-            raise ValueError("the evaluator is per-sample (n == 1)")
-        poses_np = np.asarray(batch["poses"])
-        projs_np = np.asarray(batch["projs"])
-        bboxes = batch["3d_bboxes"]
-        if isinstance(bboxes, (list, tuple)) and len(bboxes) == 1 and \
-                isinstance(bboxes[0], (list, tuple)):
-            bboxes = bboxes[0]
-        _, _, h, w, _ = images.shape
-        seg = np.asarray(batch["segs"]).reshape(h, w) if "segs" in batch \
-            else None
-        ph, pw = h // 2, w // 2
+        with tracing.stages(None, OCC_STAGES, mark) as mark:
+            dev = next(self.net.parameters()).device
+            images = torch.as_tensor(batch["imgs"], device=dev)
+            if images.shape[0] != 1:
+                raise ValueError("the evaluator is per-sample (n == 1)")
+            poses_np = np.asarray(batch["poses"])
+            projs_np = np.asarray(batch["projs"])
+            bboxes = batch["3d_bboxes"]
+            if isinstance(bboxes, (list, tuple)) and len(bboxes) == 1 and \
+                    isinstance(bboxes[0], (list, tuple)):
+                bboxes = bboxes[0]
+            _, _, h, w, _ = images.shape
+            seg = np.asarray(batch["segs"]).reshape(h, w) if "segs" in batch \
+                else None
+            ph, pw = h // 2, w // 2
 
-        to_keyframe = np.linalg.inv(poses_np[0, 0])
-        poses_w = (to_keyframe[None, None] @ poses_np).astype(np.float32)
+            to_keyframe = np.linalg.inv(poses_np[0, 0])
+            poses_w = (to_keyframe[None, None] @ poses_np).astype(np.float32)
 
-        # Encode at full resolution; render the pseudo-depth at half
-        # (reference :206-251).
-        gray = torch.mean(images, dim=-1, keepdim=True) * 0.5 + 0.5
-        grid, pred_depth = self.encode_and_depth(
-            images, torch.as_tensor(projs_np, device=dev),
-            torch.as_tensor(poses_w, device=dev),
-            gray[:, :1].expand(-1, -1, -1, -1, 3), (ph, pw), generator,
-            z_samp, mark)
+            # Encode at full resolution; render the pseudo-depth at half
+            # (reference :206-251).
+            gray = torch.mean(images, dim=-1, keepdim=True) * 0.5 + 0.5
+            grid, pred_depth = self.encode_and_depth(
+                images, torch.as_tensor(projs_np, device=dev),
+                torch.as_tensor(poses_w, device=dev),
+                gray[:, :1].expand(-1, -1, -1, -1, 3), (ph, pw), generator,
+                z_samp, mark)
 
-        q_pts, _ = get_pts(self.x_range, self.y_range, self.z_range,
-                           self.ppm, self.ppm_y)
-        q_pts = q_pts.reshape(-1, 3)
-        densities = self.query_density(grid, q_pts)
-        is_occupied_pred = densities > self.occ_threshold
-        if mark:
-            mark("query")
+            q_pts, _ = get_pts(self.x_range, self.y_range, self.z_range,
+                               self.ppm, self.ppm_y)
+            q_pts = q_pts.reshape(-1, 3)
+            densities = self.query_density(grid, q_pts)
+            is_occupied_pred = densities > self.occ_threshold
+            if mark:
+                mark("query")
 
-        bboxes = [b for b in bboxes
-                  if id2label[int(b["semanticId"])].category != "flat"]
-        bboxes = [verts_to_cam(b, to_keyframe) for b in bboxes]
-        bboxes = [b for b in bboxes
-                  if bbox_in_frustum(b, projs_np[0, 0], self.z_range[0])]
-        gt_depth = np.full((ph, pw), np.inf, dtype=np.float32)
-        if bboxes and seg is not None:
-            gt_depth = box_depth(bboxes, seg, projs_np[0, 0], h, w, ph, pw)
+            bboxes = [b for b in bboxes
+                      if id2label[int(b["semanticId"])].category != "flat"]
+            bboxes = [verts_to_cam(b, to_keyframe) for b in bboxes]
+            bboxes = [b for b in bboxes
+                      if bbox_in_frustum(b, projs_np[0, 0], self.z_range[0])]
+            gt_depth = np.full((ph, pw), np.inf, dtype=np.float32)
+            if bboxes and seg is not None:
+                gt_depth = box_depth(bboxes, seg, projs_np[0, 0], h, w, ph, pw)
 
-        cam_pts, dists = project_into_cam(q_pts, projs_np[0, 0])
-        gt_dist = _grid_sample_nearest_ac_true(
-            np.nan_to_num(gt_depth, posinf=1e6), cam_pts[:, :2])
-        pred_dist = _grid_sample_nearest_ac_true(pred_depth, cam_pts[:, :2])
-        is_visible = (dists <= gt_dist) | (dists <= pred_dist)
+            cam_pts, dists = project_into_cam(q_pts, projs_np[0, 0])
+            gt_dist = _grid_sample_nearest_ac_true(
+                np.nan_to_num(gt_depth, posinf=1e6), cam_pts[:, :2])
+            pred_dist = _grid_sample_nearest_ac_true(pred_depth,
+                                                     cam_pts[:, :2])
+            is_visible = (dists <= gt_dist) | (dists <= pred_dist)
 
-        is_occupied = np.zeros(q_pts.shape[0], dtype=bool)
-        for b in bboxes:
-            is_occupied |= in_bbox(q_pts, compute_bounds(b))
-        is_occupied &= ~is_visible
-        if mark:
-            mark("ground_truth")
+            is_occupied = np.zeros(q_pts.shape[0], dtype=bool)
+            for b in bboxes:
+                is_occupied |= in_bbox(q_pts, compute_bounds(b))
+            is_occupied &= ~is_visible
+            if mark:
+                mark("ground_truth")
         return occupancy_metrics(is_occupied_pred, is_occupied, is_visible)

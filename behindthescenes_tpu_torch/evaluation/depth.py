@@ -17,7 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from behindthescenes_tpu_torch import geometry
+from behindthescenes_tpu_torch import geometry, tracing
 from behindthescenes_tpu_torch.evaluation import metrics as M
 from behindthescenes_tpu_torch.evaluation.nvs import crop_box, render_general
 from behindthescenes_tpu_torch.inference import render_depth_selfview
@@ -64,22 +64,25 @@ class DepthEvaluator:
         """Keyframe z-depth (1, h, w) of a batch (n = 1) on the model's
         device. z_samp (self-view) and z_jitter (general path) replace the
         generator's draws. On the self-view path mark(name), where given,
-        is called after "encode" and after "render"."""
+        is called after "encode" and after "render", at the ends of the
+        stage spans inside the span "depth_frame" (`tracing`)."""
         if not self.use_selfview:
             return self.render_general(images, projs, poses, generator,
                                        z_jitter)[:, 0]
-        _, _, h, w, _ = images.shape
-        poses_r = geometry.rebase_poses_to_keyframe(poses)
-        grid = self.net.encode(images, projs, poses_r, ids_encoder=[0],
-                               ids_render=[0])
-        if mark:
-            mark("encode")
-        depth, _, _ = render_depth_selfview(
-            self.net, grid, h, w, self.cfg, self.z_near, self.z_far,
-            as_z_depth=True, deterministic=self.deterministic,
-            generator=generator, z_samp=z_samp)
-        if mark:
-            mark("render")
+        with tracing.stages("depth_frame", ("encode", "render"),
+                            mark) as mark:
+            _, _, h, w, _ = images.shape
+            poses_r = geometry.rebase_poses_to_keyframe(poses)
+            grid = self.net.encode(images, projs, poses_r, ids_encoder=[0],
+                                   ids_render=[0])
+            if mark:
+                mark("encode")
+            depth, _, _ = render_depth_selfview(
+                self.net, grid, h, w, self.cfg, self.z_near, self.z_far,
+                as_z_depth=True, deterministic=self.deterministic,
+                generator=generator, z_samp=z_samp)
+            if mark:
+                mark("render")
         return depth
 
     @torch.no_grad()

@@ -19,6 +19,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from behindthescenes_tpu_torch import tracing
 from behindthescenes_tpu_torch.inference import render_depth_selfview
 from behindthescenes_tpu_torch.models.bts import BTSNet
 from behindthescenes_tpu_torch.parallel.mesh import (eval_group,
@@ -26,6 +27,8 @@ from behindthescenes_tpu_torch.parallel.mesh import (eval_group,
 from behindthescenes_tpu_torch.platform import exact_f32
 
 EPS = 1e-4
+# An evaluated item's stages in order: its marks and stage spans.
+OCC_STAGES = ("encode", "render", "query", "ground_truth")
 
 # KITTI-360 cameras have ~5 deg negative inclination
 # (reference evaluator_lidar.py:27-34).
@@ -277,43 +280,47 @@ class LidarOccEvaluator(OccupancyQuery):
         or is z_samp (h*w, n_coarse). mark(name) is called after
         "encode", "render", "query" and "ground_truth". Returns the metric
         dict (python floats)."""
-        dev = next(self.net.parameters()).device
-        images = torch.as_tensor(batch["imgs"], device=dev)
-        if images.shape[0] != 1:
-            raise ValueError("the evaluator is per-sample (n == 1)")
-        poses_np = np.asarray(batch["poses"])
-        projs_np = np.asarray(batch["projs"])
-        _, _, h, w, _ = images.shape
-        index = int(np.asarray(batch["index"]).ravel()[0]) \
-            if "index" in batch else 0
+        with tracing.stages(None, OCC_STAGES, mark) as mark:
+            dev = next(self.net.parameters()).device
+            images = torch.as_tensor(batch["imgs"], device=dev)
+            if images.shape[0] != 1:
+                raise ValueError("the evaluator is per-sample (n == 1)")
+            poses_np = np.asarray(batch["poses"])
+            projs_np = np.asarray(batch["projs"])
+            _, _, h, w, _ = images.shape
+            index = int(np.asarray(batch["index"]).ravel()[0]) \
+                if "index" in batch else 0
 
-        # Inclination-adjusted world frame (reference :257-261).
-        world_transform = CAM_INCL_ADJUST @ np.linalg.inv(poses_np[0, 0])
-        poses_w = (world_transform[None, None] @ poses_np).astype(np.float32)
+            # Inclination-adjusted world frame (reference :257-261).
+            world_transform = CAM_INCL_ADJUST @ np.linalg.inv(
+                poses_np[0, 0])
+            poses_w = (world_transform[None, None]
+                       @ poses_np).astype(np.float32)
 
-        grid, pred_depth = self.encode_and_depth(
-            images, torch.as_tensor(projs_np, device=dev),
-            torch.as_tensor(poses_w, device=dev), images[:, :1] * 0.5 + 0.5,
-            (h, w), generator, z_samp, mark)
+            grid, pred_depth = self.encode_and_depth(
+                images, torch.as_tensor(projs_np, device=dev),
+                torch.as_tensor(poses_w, device=dev),
+                images[:, :1] * 0.5 + 0.5, (h, w), generator, z_samp, mark)
 
-        q_pts, (xd, yd, zd) = get_pts(self.x_range, self.y_range,
-                                      self.z_range, self.ppm, self.ppm_y,
-                                      self.y_res)
-        q_pts = q_pts.reshape(-1, 3)
-        densities = self.query_density(grid, q_pts)
-        is_occupied_pred = densities > self.occ_threshold
-        if mark:
-            mark("query")
+            q_pts, (xd, yd, zd) = get_pts(self.x_range, self.y_range,
+                                          self.z_range, self.ppm, self.ppm_y,
+                                          self.y_res)
+            q_pts = q_pts.reshape(-1, 3)
+            densities = self.query_density(grid, q_pts)
+            is_occupied_pred = densities > self.occ_threshold
+            if mark:
+                mark("query")
 
-        cam_pts, dists = project_into_cam(q_pts, projs_np[0, 0],
-                                          poses_w[0, 0])
-        pred_dist = _grid_sample_nearest_ac_true(pred_depth, cam_pts[:, :2])
-        is_visible_pred = dists <= pred_dist
+            cam_pts, dists = project_into_cam(q_pts, projs_np[0, 0],
+                                              poses_w[0, 0])
+            pred_dist = _grid_sample_nearest_ac_true(pred_depth,
+                                                     cam_pts[:, :2])
+            is_visible_pred = dists <= pred_dist
 
-        is_occupied, is_visible = self.ground_truth(index, world_transform,
-                                                    q_pts, yd)
-        is_visible |= is_visible_pred
-        is_occupied &= ~is_visible
-        if mark:
-            mark("ground_truth")
+            is_occupied, is_visible = self.ground_truth(index, world_transform,
+                                                        q_pts, yd)
+            is_visible |= is_visible_pred
+            is_occupied &= ~is_visible
+            if mark:
+                mark("ground_truth")
         return occupancy_metrics(is_occupied_pred, is_occupied, is_visible)

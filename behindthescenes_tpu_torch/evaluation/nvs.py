@@ -16,7 +16,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from behindthescenes_tpu_torch import geometry
+from behindthescenes_tpu_torch import geometry, tracing
 from behindthescenes_tpu_torch.evaluation import metrics as M
 from behindthescenes_tpu_torch.models.bts import BTSNet
 from behindthescenes_tpu_torch.models.sweep import render_frame_sweep
@@ -48,27 +48,29 @@ def render_general(net: BTSNet, images, projs, poses, cfg, z_near: float,
     the generator's draws; mark(name) is called after "encode" and
     "render"; group: ranks that share the rays (EVAL_RAY_CHUNK rays per
     rank; `render_rays_chunked`)."""
-    _, _, h, w, _ = images.shape
-    poses_r = geometry.rebase_poses_to_keyframe(poses)
-    grid = net.encode(images if enc_images is None else enc_images, projs,
-                      poses_r, ids_encoder=[0], ids_render=[0],
-                      images_alt=images_alt)
-    if mark:
-        mark("encode")
-    sampler = ImageRaySampler(z_near, z_far, height=h, width=w)
-    rays, _ = sampler.sample(None, poses_r, projs)
+    with tracing.stages(None, ("encode", "render"), mark) as mark:
+        _, _, h, w, _ = images.shape
+        poses_r = geometry.rebase_poses_to_keyframe(poses)
+        grid = net.encode(images if enc_images is None else enc_images, projs,
+                          poses_r, ids_encoder=[0], ids_render=[0],
+                          images_alt=images_alt)
+        if mark:
+            mark("encode")
+        sampler = ImageRaySampler(z_near, z_far, height=h, width=w)
+        rays, _ = sampler.sample(None, poses_r, projs)
 
-    def query_fn(xyz, coarse):
-        return net.query(grid, xyz, coarse=coarse)
+        def query_fn(xyz, coarse):
+            return net.query(grid, xyz, coarse=coarse)
 
-    out = render_rays_chunked(query_fn, rays, cfg, ray_chunk=EVAL_RAY_CHUNK,
-                              generator=generator, z_jitter=z_jitter,
-                              fine_draws=fine_draws, group=group)
-    render_dict = sampler.reconstruct(
-        {"coarse": out["coarse"],
-         "fine": out.get("fine", dict(out["coarse"]))})
-    if mark:
-        mark("render")
+        out = render_rays_chunked(query_fn, rays, cfg,
+                                  ray_chunk=EVAL_RAY_CHUNK,
+                                  generator=generator, z_jitter=z_jitter,
+                                  fine_draws=fine_draws, group=group)
+        render_dict = sampler.reconstruct(
+            {"coarse": out["coarse"],
+             "fine": out.get("fine", dict(out["coarse"]))})
+        if mark:
+            mark("render")
     return render_dict
 
 
@@ -80,18 +82,19 @@ def render_sweep(net: BTSNet, images, projs, poses, cfg, sweep_conf: dict,
     3). enc_images replaces the encoder's input; mark(name) is called
     after "encode" and "render"; group: ranks that share each frame's
     rays. Draws nothing."""
-    _, v, h, w, _ = images.shape
-    poses_r = geometry.rebase_poses_to_keyframe(poses)
-    grid = net.encode(images if enc_images is None else enc_images, projs,
-                      poses_r, ids_encoder=[0], ids_render=[0],
-                      images_alt=images[:, :1] * 0.5 + 0.5)
-    if mark:
-        mark("encode")
-    rgb = torch.stack([render_frame_sweep(
-        net, grid, poses_r[0, vi], projs[0, vi], (h, w), cfg, group=group,
-        **sweep_conf)["fine"]["rgb"][0] for vi in range(v)])
-    if mark:
-        mark("render")
+    with tracing.stages(None, ("encode", "render"), mark) as mark:
+        _, v, h, w, _ = images.shape
+        poses_r = geometry.rebase_poses_to_keyframe(poses)
+        grid = net.encode(images if enc_images is None else enc_images, projs,
+                          poses_r, ids_encoder=[0], ids_render=[0],
+                          images_alt=images[:, :1] * 0.5 + 0.5)
+        if mark:
+            mark("encode")
+        rgb = torch.stack([render_frame_sweep(
+            net, grid, poses_r[0, vi], projs[0, vi], (h, w), cfg, group=group,
+            **sweep_conf)["fine"]["rgb"][0] for vi in range(v)])
+        if mark:
+            mark("render")
     return rgb.reshape(v, h, w, 3)
 
 

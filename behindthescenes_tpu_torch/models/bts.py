@@ -22,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from behindthescenes_tpu_torch import geometry
+from behindthescenes_tpu_torch import geometry, tracing
 from behindthescenes_tpu_torch.models.encoder import (ImageEncoder,
                                                       make_backbone)
 from behindthescenes_tpu_torch.models.mlp import ResnetFC, make_mlp
@@ -92,7 +92,7 @@ def _combine_first_valid(values, invalid, groups):
 
 
 def _index(ids, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(ids, dtype=np.int64), device=device)
+    return tracing.to_device(np.asarray(ids, dtype=np.int64), device)
 
 
 def _nearest_resize(x, h, w):
@@ -126,7 +126,7 @@ def _linspace(n: int, dtype, device) -> torch.Tensor:
     jnp.linspace's start."""
     if n == 1:
         return torch.full((1,), -1.0, dtype=dtype, device=device)
-    div = torch.tensor(n - 1, dtype=dtype, device=device)
+    div = tracing.to_device(n - 1, device, dtype)
     step = torch.arange(n - 1, dtype=dtype, device=device) / div
     return torch.cat([-(1 - step) + step,
                       torch.ones(1, dtype=dtype, device=device)])

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from behindthescenes_tpu_torch import tracing
 from behindthescenes_tpu_torch.ops.kernels.jitter_density import \
     jitter_density
 from behindthescenes_tpu_torch.ops.kernels.selfview import (
@@ -113,8 +114,8 @@ class ResnetFC(nn.Module):
         (in, hidden) matrices, and its bias."""
         w = self.lin_in.weight.t()
         dev = w.device
-        return (w[torch.as_tensor(rows_static, device=dev)],
-                w[torch.as_tensor(rows_dynamic, device=dev)],
+        return (w[tracing.to_device(rows_static, dev)],
+                w[tracing.to_device(rows_dynamic, dev)],
                 self.lin_in.bias)
 
     def static_hidden(self, x_static, w_s):

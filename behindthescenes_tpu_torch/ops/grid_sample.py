@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from behindthescenes_tpu_torch import tracing
+
 
 def _unnormalize(coord, size: int, align_corners: bool):
     if align_corners:
@@ -227,9 +229,9 @@ def resample_uniform_lattice(image: torch.Tensor, out_hw,
     """image (H, W, C) -> (out_h, out_w, C) in image's dtype."""
     h, w, _ = image.shape
     oh, ow = out_hw
-    ry = torch.as_tensor(_lattice_matrix(oh, h, align_corners),
-                         dtype=image.dtype, device=image.device)
-    rx = torch.as_tensor(_lattice_matrix(ow, w, align_corners),
-                         dtype=image.dtype, device=image.device)
+    ry = tracing.to_device(_lattice_matrix(oh, h, align_corners),
+                           image.device, image.dtype)
+    rx = tracing.to_device(_lattice_matrix(ow, w, align_corners),
+                           image.device, image.dtype)
     out = torch.einsum("oh,hwc->owc", ry, image)
     return torch.einsum("pw,owc->opc", rx, out)

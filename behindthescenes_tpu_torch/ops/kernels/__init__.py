@@ -1,7 +1,10 @@
 """The port's hand-written CUDA kernels, one module per Pallas kernel of
 the JAX package. Each wrapper launches its kernel on a CUDA tensor, runs
-its plain PyTorch version on a CPU tensor, and counts its launches in a
-plain integer attribute `launches`."""
+its plain PyTorch version on a CPU tensor, and counts its launches in the
+port's counter "launches.<kernel>" (`behindthescenes_tpu_torch.tracing`).
+`launch_counts` and `reset_launch_counts` read and clear those
+counters."""
+from behindthescenes_tpu_torch import tracing
 from behindthescenes_tpu_torch.ops.kernels.jitter_density import \
     jitter_density
 from behindthescenes_tpu_torch.ops.kernels.selfview import selfview_density
@@ -13,9 +16,9 @@ KERNELS = {"shared_z": shared_z_tail,
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    tracing.reset(["launches." + name for name in KERNELS])
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    counts = tracing.counters()
+    return {name: counts.get("launches." + name, 0) for name in KERNELS}

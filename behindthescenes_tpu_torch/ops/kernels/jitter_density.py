@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from behindthescenes_tpu_torch import tracing
 from behindthescenes_tpu_torch.ops.kernels import _build
 
 # The kernel's code columns: the k dimension of its m16n8k16 products.
@@ -125,9 +126,7 @@ def jitter_density(coord, h_static, w_d, b_in, w_out, b_out, *,
             b_in.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
             out.data_ptr(), b, k, h, n_freqs, float(freq_factor),
             torch.cuda.current_stream().cuda_stream)
-        jitter_density.launches += 1
+        tracing.count("launches.jitter_density")
     _build.check(err, "jitter_density")
     return out
 
-
-jitter_density.launches = 0

@@ -12,6 +12,7 @@ import functools
 import numpy as np
 import torch
 
+from behindthescenes_tpu_torch import tracing
 from behindthescenes_tpu_torch.ops.kernels import _build
 
 # The kernel takes K in groups of this many consecutive samples per thread
@@ -99,9 +100,7 @@ def selfview_density(h_static, coord, w_z, b_in, w_out, b_out, *,
             b_in.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
             sigma.data_ptr(), b, k, h, n_freqs, float(freq_factor),
             torch.cuda.current_stream().cuda_stream)
-        selfview_density.launches += 1
+        tracing.count("launches.selfview")
     _build.check(err, "selfview_density")
     return sigma
 
-
-selfview_density.launches = 0

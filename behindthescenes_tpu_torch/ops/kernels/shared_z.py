@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from behindthescenes_tpu_torch import tracing
 from behindthescenes_tpu_torch.ops.kernels import _build
 
 
@@ -69,9 +70,7 @@ def shared_z_tail(hs, hd, w_out, b_out):
         err = launch(hs.data_ptr(), hd.data_ptr(), w_out.data_ptr(),
                      b_out.data_ptr(), out.data_ptr(), b, k, h,
                      torch.cuda.current_stream().cuda_stream)
-        shared_z_tail.launches += 1
+        tracing.count("launches.shared_z")
     _build.check(err, "shared_z_tail")
     return out
 
-
-shared_z_tail.launches = 0

@@ -13,6 +13,8 @@ import math
 import numpy as np
 import torch
 
+from behindthescenes_tpu_torch import tracing
+
 
 @dataclasses.dataclass(frozen=True)
 class PositionalEncoding:
@@ -27,9 +29,9 @@ class PositionalEncoding:
         return d + self.d_in if self.include_input else d
 
     def freqs(self, dtype=torch.float32, device=None) -> torch.Tensor:
-        return torch.as_tensor(
-            self.freq_factor * 2.0 ** np.arange(self.num_freqs),
-            dtype=dtype, device=device)
+        return tracing.to_device(
+            self.freq_factor * 2.0 ** np.arange(self.num_freqs), device,
+            dtype)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """x: (..., d_in) -> (..., d_out)."""

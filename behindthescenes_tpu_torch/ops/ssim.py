@@ -12,8 +12,11 @@ tests/test_torch_general_path.py). The window's weights are the
 reference's f32 constants, as in JAX. The result has the input's dtype."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from behindthescenes_tpu_torch import tracing
 
 # 3x3 gaussian window, the reference's constants (layers.py:82-85).
 _GAUSS3 = ((0.0947, 0.1183, 0.0947),
@@ -43,10 +46,10 @@ def ssim(x: torch.Tensor, y: torch.Tensor, *, pad_reflection: bool = True,
         x = F.pad(x, (1, 1, 1, 1), mode=mode)
         y = F.pad(y, (1, 1, 1, 1), mode=mode)
     if gaussian_average:
-        window = torch.tensor(_GAUSS3, dtype=torch.float32)
+        window = np.asarray(_GAUSS3, dtype=np.float32)
     else:
-        window = torch.full((3, 3), 1.0 / 9.0, dtype=torch.float32)
-    window = window.to(x.device, x.dtype)
+        window = np.full((3, 3), 1.0 / 9.0, dtype=np.float32)
+    window = tracing.to_device(window, x.device, x.dtype)
     mu_x = _depthwise3(x, window)
     mu_y = _depthwise3(y, window)
     mu_x_sq = mu_x * mu_x

@@ -42,6 +42,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from behindthescenes_tpu_torch import tracing
 from behindthescenes_tpu_torch.parallel.mesh import any_rank, barrier, sum_host
 from behindthescenes_tpu_torch.training.trainer import BTSTrainer
 from behindthescenes_tpu_torch.weights import (_to_torch_layout, flax_key,
@@ -81,6 +82,15 @@ class MeanMetric:
 
 @dataclasses.dataclass
 class HarnessConfig:
+    """The run loop's settings, read from the task config's keys.
+
+    `profile_dir`: iterations profile_steps[0] (included) to
+    profile_steps[1] (left out) run under torch.profiler, whose trace is
+    written there for TensorBoard, with the port's spans on
+    (`behindthescenes_tpu_torch.tracing`: train_step and its stages,
+    data_wait for the loader's wait); the port's counters over those
+    iterations (kernel launches, host-to-device copies and bytes) are
+    logged when the profiler stops."""
     output_path: str = "out/run"
     num_epochs: int = 1
     validate_every: int = 2000       # iterations
@@ -308,11 +318,11 @@ def base_training(config: dict, get_dataflow: Callable,
     get_dataflow(config) -> (train_loader, val_loader, vis_loader).
     on_iteration(it, trainer, loss_dict), on_validation(it, metrics) and
     visualize(trainer, vis_loader, it) are called as in the JAX harness.
-    mark(point), where given, is called at "init" (the trainer
-    initialised) and "restore" (a checkpoint restored); in each iteration
-    at "wait" (the next batch asked for), "data" (it is on the device),
-    the train step's own points ("encode" ... "optimizer"), and
-    "checkpoint" and "validate" after those events. Returns the trainer.
+    mark(point), where given, is called in each iteration at "wait" (the
+    next batch asked for), "data" (it is on the device; the wait between
+    is the span "data_wait"), the train step's own points ("encode" ...
+    "optimizer"), and "checkpoint" after a checkpoint is written. For
+    `profile_dir` see HarnessConfig. Returns the trainer.
     """
     hc = HarnessConfig.from_conf(config)
     os.makedirs(hc.output_path, exist_ok=True)
@@ -327,8 +337,6 @@ def base_training(config: dict, get_dataflow: Callable,
 
     train_loader, val_loader, vis_loader = get_dataflow(config)
     trainer.init_state()
-    if mark:
-        mark("init")
 
     ckpt = CheckpointManager(os.path.join(hc.output_path, "checkpoints"))
     best_ckpt = CheckpointManager(os.path.join(hc.output_path, "best"),
@@ -364,8 +372,6 @@ def base_training(config: dict, get_dataflow: Callable,
             trainer.scheduler.load_state_dict(extra["render_sched"])
         log.info("resumed from %s at step %d", source.directory,
                  trainer.step)
-        if mark:
-            mark("restore")
 
     def save(target, step):
         if main:
@@ -373,7 +379,17 @@ def base_training(config: dict, get_dataflow: Callable,
                 "render_sched": trainer.scheduler.state_dict()})
             log.info("checkpoint %d written to %s", step, target.directory)
 
+    def stop_profile():
+        nonlocal profiler
+        profiler.stop()
+        tracing.enable(False)
+        profiler = None
+        log.info("profiler trace written to %s; the port's counters over "
+                 "it: %s", hc.profile_dir, tracing.counters())
+
     def finish(reason):
+        if profiler is not None:
+            stop_profile()
         if ckpt.latest_step() != it:  # don't save this step twice
             save(ckpt, it)
         barrier(group)  # the last checkpoint is whole before any returns
@@ -409,8 +425,6 @@ def base_training(config: dict, get_dataflow: Callable,
                     pass
                 log.info("new best %s=%.5f @ %d", hc.save_best_metric,
                          metrics[hc.save_best_metric], it)
-        if mark:
-            mark("validate")
 
     profiler = None
     it = trainer.step
@@ -421,23 +435,24 @@ def base_training(config: dict, get_dataflow: Callable,
         batches = _device_batches(train_loader, trainer.device,
                                   hc.transfer_dtype)
         while True:
+            if hc.profile_dir and it == hc.profile_steps[0]:
+                profiler = torch.profiler.profile(
+                    on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                        hc.profile_dir))
+                tracing.reset()
+                tracing.enable(True)
+                profiler.start()
+            if profiler is not None and it == hc.profile_steps[1]:
+                stop_profile()
             if mark:
                 mark("wait")
-            batch = next(batches, None)
+            with tracing.span("data_wait"):
+                batch = next(batches, None)
             if batch is None:
                 break
             if mark:
                 mark("data")
             t_data = time.time() - t_iter
-            if hc.profile_dir and it == hc.profile_steps[0]:
-                profiler = torch.profiler.profile(
-                    on_trace_ready=torch.profiler.tensorboard_trace_handler(
-                        hc.profile_dir))
-                profiler.start()
-            if profiler is not None and it == hc.profile_steps[1]:
-                profiler.stop()
-                profiler = None
-                log.info("profiler trace written to %s", hc.profile_dir)
 
             loss_dict = trainer.train_step(batch, mark=mark)
             it += 1

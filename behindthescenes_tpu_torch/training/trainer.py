@@ -43,6 +43,7 @@ import torch.distributed as dist
 from torch import nn
 
 from behindthescenes_tpu_torch import renderer as renderer_lib
+from behindthescenes_tpu_torch import tracing
 from behindthescenes_tpu_torch.import_torch import apply_pretrained_encoder
 from behindthescenes_tpu_torch.losses import ReconstructionLoss
 from behindthescenes_tpu_torch.models.bts import BTSNet
@@ -53,6 +54,9 @@ from behindthescenes_tpu_torch.training.schedule import make_lr_schedule
 from behindthescenes_tpu_torch.training.wrapper import (BTSWrapper, Draws,
                                                         compute_depth_metrics)
 from behindthescenes_tpu_torch.weights import load_weights
+
+# A micro-step's stages in order: train_step's marks and stage spans.
+TRAIN_STAGES = ("encode", "render", "loss", "backward", "optimizer")
 
 
 def make_optimizer(config: dict, params):
@@ -116,7 +120,7 @@ def alternating_half(name: str) -> Optional[str]:
 
 
 def _as_batch(batch: dict, device) -> dict:
-    return {k: torch.as_tensor(v, device=device)
+    return {k: tracing.to_device(v, device)
             for k, v in batch.items() if v is not None}
 
 
@@ -216,36 +220,40 @@ class BTSTrainer:
         the numpy generator, the forward pass with `draws` (fields left
         None come from the trainer's generator), the loss, the backward
         pass, and the update (module docstring). mark(stage) is called
-        after "encode", "render", "loss", "backward" and "optimizer".
-        Returns the loss terms as 0-d tensors (detached)."""
+        after "encode", "render", "loss", "backward" and "optimizer", at
+        the ends of the stage spans inside the span "train_step"
+        (`tracing`). Returns the loss terms as 0-d tensors (detached)."""
         if self.optimizer is None:
             raise RuntimeError("call init_state first")
-        cfg = self.scheduler.step()
-        batch = _as_batch(batch, self.device)
-        if batch["imgs"].element_size() < 4:
-            # Images may arrive narrowed for the transfer; the math is f32.
-            batch["imgs"] = batch["imgs"].float()
-        ids = self.wrapper.select_views(self.np_rng, batch["imgs"].shape[1],
-                                        training=True)
-        self.optimizer.zero_grad(set_to_none=True)
-        data = self.wrapper.forward(batch, ids, train=True, renderer_cfg=cfg,
-                                    draws=draws, generator=self.generator,
-                                    mark=mark, group=self.group)
-        loss, loss_dict = self.criterion(data, self.group)
-        if mark:
-            mark("loss")
-        if self.group is None:
-            loss.backward()
-        else:
-            (loss / self.world).backward()
-            self._reduce_grads()
-        if mark:
-            mark("backward")
-        self._update()
-        if mark:
-            mark("optimizer")
-        self.step += 1
-        return {k: v.detach() for k, v in loss_dict.items()}
+        with tracing.stages("train_step", TRAIN_STAGES, mark) as mark:
+            cfg = self.scheduler.step()
+            batch = _as_batch(batch, self.device)
+            if batch["imgs"].element_size() < 4:
+                # Images may arrive narrowed for the transfer; the math is
+                # f32.
+                batch["imgs"] = batch["imgs"].float()
+            ids = self.wrapper.select_views(
+                self.np_rng, batch["imgs"].shape[1], training=True)
+            self.optimizer.zero_grad(set_to_none=True)
+            data = self.wrapper.forward(
+                batch, ids, train=True, renderer_cfg=cfg, draws=draws,
+                generator=self.generator, mark=mark, group=self.group)
+            loss, loss_dict = self.criterion(data, self.group)
+            out = {k: v.detach() for k, v in loss_dict.items()}
+            if mark:
+                mark("loss")
+            if self.group is None:
+                loss.backward()
+            else:
+                (loss / self.world).backward()
+                self._reduce_grads()
+            if mark:
+                mark("backward")
+            self._update()
+            self.step += 1
+            if mark:
+                mark("optimizer")
+        return out
 
     @torch.no_grad()
     def _reduce_grads(self) -> None:

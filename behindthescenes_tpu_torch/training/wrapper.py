@@ -20,7 +20,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from behindthescenes_tpu_torch import geometry
+from behindthescenes_tpu_torch import geometry, tracing
 from behindthescenes_tpu_torch import renderer as renderer_lib
 from behindthescenes_tpu_torch.losses import compute_errors_l1ssim
 from behindthescenes_tpu_torch.models.bts import BTSNet
@@ -163,8 +163,8 @@ class BTSWrapper:
 
         sampler = self.train_sampler if train else dataclasses.replace(
             self.val_sampler, height=h, width=w)
-        il = torch.as_tensor(np.asarray(ids.ids_loss, dtype=np.int64),
-                             device=dev)
+        il = tracing.to_device(np.asarray(ids.ids_loss, dtype=np.int64),
+                               dev)
         rank, world = rank_world(group)
         lo, hi = rank * n, (rank + 1) * n
         ray_draws = draws.rays
@@ -240,8 +240,8 @@ def automask_error(images_ip, ids_loss):
     error between each view and each loss view, both at 0.5x, averaged
     over the loss views. images_ip (n, v, h, w, 3) -> (n, v, h, w, 1)."""
     n, v, h, w, c = images_ip.shape
-    il = torch.as_tensor(np.asarray(ids_loss, dtype=np.int64),
-                         device=images_ip.device)
+    il = tracing.to_device(np.asarray(ids_loss, dtype=np.int64),
+                           images_ip.device)
     cand = images_ip[:, il] * 0.5                       # (n, nc, h, w, c)
     nc = cand.shape[1]
     a = (images_ip * 0.5)[:, :, :, :, None, :].expand(n, v, h, w, nc, c)

@@ -1,0 +1,8 @@
+"""Encoder: device idle ms inside the program's span "encode" of a depth
+frame (the frame's start to the mark "encode"), the mean over the spans
+stretch's frames (`spans.py`)."""
+from port_bench import spans
+
+
+def read(run):
+    return spans.idle_ms(run, "encode")

@@ -1,0 +1,7 @@
+"""Query and renderer: kernels launched inside the program's span
+"render", per micro-step of the spans stretch (`spans.py`)."""
+from port_bench import spans
+
+
+def read(run):
+    return spans.per(run, "render", "launches")

@@ -325,15 +325,15 @@ def _count_calls(monkeypatch, name):
     call it, counting its calls as launches (on the CPU the wrapper runs
     its plain version and counts nothing)."""
     import functools
+    from behindthescenes_tpu_torch import tracing
     from behindthescenes_tpu_torch.models import mlp
     from behindthescenes_tpu_torch.ops import kernels
     fn = kernels.KERNELS[name]
 
     @functools.wraps(fn)
     def counted(*args, **kwargs):
-        counted.launches += 1
+        tracing.count("launches." + name)
         return fn(*args, **kwargs)
-    counted.launches = 0
     monkeypatch.setitem(kernels.KERNELS, name, counted)
     monkeypatch.setattr(mlp, fn.__name__, counted)
 
