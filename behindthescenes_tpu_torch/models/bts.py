@@ -25,6 +25,8 @@ from torch import nn
 from behindthescenes_tpu_torch import geometry, tracing
 from behindthescenes_tpu_torch.models.encoder import (ImageEncoder,
                                                       make_backbone)
+from behindthescenes_tpu_torch.models.encoder_graph import (EncoderGraphs,
+                                                            takes_graph)
 from behindthescenes_tpu_torch.models.mlp import ResnetFC, make_mlp
 from behindthescenes_tpu_torch.ops.grid_sample import (
     grid_sample_2d, grid_sample_2d_packed, grid_sample_2d_tiles,
@@ -195,6 +197,7 @@ class BTSNet(nn.Module):
         self.compute_dtype = compute_dtype
         self.learn_empty = learn_empty
         self.encoder = make_backbone(dict(encoder_conf), compute_dtype)
+        self.encoder_graphs = EncoderGraphs()
         if isinstance(self.encoder, ImageEncoder):
             # Its (n, latent) output has no pixels to sample: the JAX
             # package's encode fails on it too (the flip of each latent's
@@ -256,8 +259,15 @@ class BTSNet(nn.Module):
         render views. do_flip: flip the encoder's input and its latents
         horizontally. train: BatchNorm normalises with
         batch statistics and moves its running statistics, as Flax's
-        encode with train=True and mutable batch_stats."""
-        n, v, h, w, _ = images.shape
+        encode with train=True and mutable batch_stats.
+
+        On the card, with no gradient, train and do_flip off, the CNN is
+        replayed from a CUDA graph of this input signature
+        (`encoder_graph.EncoderGraphs`), the same kernels in one launch.
+        The grid's features are then the graph's outputs, which the next
+        such call overwrites unless they are still held (that call then
+        runs eagerly)."""
+        v = images.shape[1]
         dev = images.device
         poses_w2c = geometry.invert_pose(poses_c2w)
         ids_encoder = list(range(v)) if ids_encoder is None else ids_encoder
@@ -268,20 +278,13 @@ class BTSNet(nn.Module):
             comb_e, comb_r = _resolve_combine(combine_ids, v, ids_encoder,
                                               ids_render)
         ie, ir = _index(ids_encoder, dev), _index(ids_render, dev)
-        nv = ie.shape[0]
-        imgs = images[:, ie].reshape(n * nv, h, w, 3)
-        if do_flip:
-            imgs = imgs.flip(2)
-        with _bn_mode(self.encoder, train):
-            latents = self.encoder(imgs.permute(0, 3, 1, 2))    # NCHW
-        if do_flip:
-            latents = [lat.flip(3) for lat in latents]
-        h0, w0 = latents[0].shape[2:]
-        c = self.encoder.latent_size
-        feats = tuple(
-            _nearest_resize(lat.permute(0, 2, 3, 1), h0, w0)
-            .reshape(n, nv, h0, w0, c).to(self.compute_dtype)
-            for lat in latents)
+        feats = None
+        if takes_graph(dev, train, do_flip):
+            feats = self.encoder_graphs.features(
+                lambda views: self._features(views, False, False), images,
+                ie, self.compute_dtype, self.encoder)
+        if feats is None:
+            feats = self._features(images[:, ie], do_flip, train)
         colors = images_alt if images_alt is not None \
             else images * 0.5 + 0.5
         colors = colors[:, ir]
@@ -292,6 +295,25 @@ class BTSNet(nn.Module):
             features=feats, f_ks=ks[:, ie], f_poses_w2c=poses_w2c[:, ie],
             color_imgs=colors, c_ks=ks[:, ir], c_poses_w2c=poses_w2c[:, ir],
             f_combine=comb_e, c_combine=comb_r)
+
+    def _features(self, views, do_flip: bool, train: bool):
+        """The CNN over the encoder views (n, nv, h, w, 3): per scale the
+        (n, nv, h0, w0, c) map in the compute dtype, each latent resized
+        to the first's size."""
+        n, nv, h, w, _ = views.shape
+        imgs = views.reshape(n * nv, h, w, 3)
+        if do_flip:
+            imgs = imgs.flip(2)
+        with _bn_mode(self.encoder, train):
+            latents = self.encoder(imgs.permute(0, 3, 1, 2))    # NCHW
+        if do_flip:
+            latents = [lat.flip(3) for lat in latents]
+        h0, w0 = latents[0].shape[2:]
+        c = self.encoder.latent_size
+        return tuple(
+            _nearest_resize(lat.permute(0, 2, 3, 1), h0, w0)
+            .reshape(n, nv, h0, w0, c).to(self.compute_dtype)
+            for lat in latents)
 
     # ----------------------------------------------------------- queries
     def _mlp(self, coarse: bool):

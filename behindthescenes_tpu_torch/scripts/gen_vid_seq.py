@@ -59,6 +59,9 @@ def render_frames(args, z_samp=None) -> list:
             net, grid, rcfg, h, w, z_near, z_far, seed=idx,
             z_samp=None if z_samp is None else z_samp(idx))
         profile, _ = iset.render_profile(net, grid)
+        # Released before the next item's encode, which can then replay
+        # the encoder's graph over these features (BTSNet.encode).
+        del grid
         rgb = np.asarray(item["imgs"][0]) * 0.5 + 0.5
         depth_img = iset.depth_to_colormap(depth, z_near, z_far)
         prof_img = resize_linear(color_tensor(profile, "magma"), (h, w))

@@ -149,6 +149,15 @@ size), gen_vid_seq's jitter_density launches held to the plain version,
 and each script's ms a frame split into encode, render and the host's
 JPEG encode.
 
+Phase 29 replays the inference encode from CUDA graphs
+(models/encoder_graph.py) at KITTI-360's depth frame and RE10K's encoder
+input, bf16: each replay held to the eager encode (bit-equal, or within
+one bf16 spacing), the capture and replay counters, depth frames through
+DepthEvaluator.render, a held grid running the next encode eagerly,
+load_weights read by the next replay and load_state_dict(assign=True)
+captured anew; memory allocated and reserved, and the host's issue and
+the card's time an encode, against the eager encode.
+
 Prints one progress line per phase (flushed, with the phase's seconds),
 then a JSON line of frame times, metrics and training times, one JSON line
 with a record per kernel, the card's name and power limit, and as the
@@ -664,6 +673,16 @@ MESH_RESOLUTIONS = (64, 128)
 MESH_REFERENCE = "media/reference/mesh_k360.npz"
 MESH_SIGMA_RTOL = 1e-2
 MESH_FACES_RTOL = 0.01
+# Phase 29: the inference encode replayed from CUDA graphs, at KITTI-360's
+# depth frame (one view of 192x640) and RE10K's encoder input (view 0 of
+# 3 at 256x384), each config's model in bf16: (config, views), calls
+# held to the eager encode, depth frames, timed calls.
+GRAPH_RUNS = (("exp_kitti_360", 1), ("exp_re10k", 3))
+GRAPH_CALLS = 6
+GRAPH_FRAMES = 4
+GRAPH_TIMED = 20
+GRAPH_COUNTERS = ("encoder_graph.captures", "encoder_graph.replays",
+                  "encoder_graph.eager")
 
 
 def log(phase: str, msg: str, t_phase: float) -> None:
@@ -3389,6 +3408,209 @@ def video_phase(tree: str, dev, card: str, extra=(),
     return out, seq_launch
 
 
+def bf16_ulps(got, want) -> tuple:
+    """(max abs deviation, elements that differ, the largest deviation in
+    units of the bf16 spacing at the larger magnitude) of two tensors."""
+    import torch
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return (float(diff.max()), int((diff > 0).sum()),
+            float((diff / ulp).max()))
+
+
+def encoder_graph_phase(dev, card: str, runs=GRAPH_RUNS,
+                        calls: int = GRAPH_CALLS,
+                        frames: int = GRAPH_FRAMES,
+                        timed: int = GRAPH_TIMED) -> dict:
+    """Phase 29 (see GRAPH_RUNS): per config, the encode of `calls`
+    inputs replayed from one CUDA graph, each held to the eager encode
+    (bit-equal, or within one bf16 spacing); `frames` depth frames of
+    DepthEvaluator.render at KITTI-360's shape replaying the same graph;
+    a grid held across the next encode, which runs eagerly and leaves the
+    held features as they were; load_weights (an in-place copy) read by
+    the next replay with no new capture, and load_state_dict(assign=True)
+    captured anew; memory allocated and reserved for the eager encode and
+    the graph's; the host's issue and the card's ms an encode, both ways.
+    Returns the record."""
+    import numpy as np
+    import torch
+    from behindthescenes_tpu_torch import eval_depth, tracing
+    from behindthescenes_tpu_torch import renderer as renderer_lib
+    from behindthescenes_tpu_torch.config import find_config, load_config
+    from behindthescenes_tpu_torch.evaluation.depth import DepthEvaluator
+    from behindthescenes_tpu_torch.weights import load_weights
+
+    def counted():
+        got = tracing.counters()
+        return {c.split(".")[1]: got.get(c, 0) for c in GRAPH_COUNTERS}
+
+    def expect(what, want):
+        got = counted()
+        if got != want:
+            raise AssertionError(f"encoder graph {what}: counters {got}, "
+                                 f"want {want}")
+
+    def held_to(got, want, what):
+        worst = max((bf16_ulps(g, w) for g, w in zip(got, want)),
+                    key=lambda d: d[2])
+        if worst[2] > 1.0:
+            raise AssertionError(f"encoder graph {what}: {worst[1]} values "
+                                 f"differ from the eager encode, up to "
+                                 f"{worst[0]:.3e} ({worst[2]:.2f} bf16 "
+                                 "spacings)")
+        return worst
+
+    def issue_ms(fn):
+        """Median host ms of fn() (no sync inside), the card idle before
+        each call."""
+        ms = []
+        for _ in range(timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        return float(np.median(ms))
+
+    out = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="encoder_graph_") as tmp, \
+            torch.no_grad():
+        for name, views in runs:
+            t = time.perf_counter()
+            conf = load_config(find_config(name))
+            model_conf = dict(conf["model_conf"])
+            h, w = conf["data"]["image_size"]
+            paths = [seeded_weights(os.path.join(tmp, f"{name}_{s}.npz"),
+                                    model_conf, seed=s) for s in (0, 1)]
+            net = eval_depth.load_model(paths[0], model_conf, bf16=True,
+                                        device=dev)
+            rng = np.random.default_rng(0)
+            images = torch.as_tensor(
+                rng.uniform(-1, 1, (calls, 1, views, h, w, 3)),
+                dtype=torch.float32, device=dev)
+            proj = torch.tensor([[0.78, 0, 0], [0, 2.9, 0.27], [0, 0, 1]],
+                                device=dev)
+            projs = proj.expand(1, views, 3, 3)
+            poses = torch.eye(4, device=dev).expand(1, views, 4, 4)
+            ie = torch.zeros(1, dtype=torch.long, device=dev)
+            ev = None
+
+            def encode(i):
+                return net.encode(images[i], projs, poses, ids_encoder=[0],
+                                  ids_render=[0]).features
+
+            def eager(i):
+                return net._features(images[i][:, ie], False, False)
+
+            # The eager encode's memory, then the graph's: the peak above
+            # what was allocated before, and what the allocator reserved.
+            def memory(since):
+                torch.cuda.synchronize()
+                return {"max_allocated":
+                        torch.cuda.max_memory_allocated() - since,
+                        "reserved": torch.cuda.memory_reserved()}
+
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            eager(0)
+            mem = {"eager": memory(base)}
+            want = [tuple(f.clone() for f in eager(i)) for i in range(calls)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            tracing.reset(GRAPH_COUNTERS)
+            worst = max((held_to(encode(i), want[i], f"{name} call {i}")
+                         for i in range(calls)), key=lambda d: d[2])
+            mem["graph_capture"] = memory(base)
+            expect(f"{name} calls", {"captures": 1, "replays": calls,
+                                     "eager": 0})
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(calls):
+                encode(i)
+            mem["graph_replays"] = memory(base)
+            res = {"shape": [1, views, h, w, 3], "memory_bytes": mem,
+                   "max_abs_dev": worst[0], "values_differing": worst[1],
+                   "max_bf16_spacings": worst[2]}
+            tracing.reset(GRAPH_COUNTERS)
+
+            # A held grid: the next encode runs eagerly; the held features
+            # stay as they were; the one after replays again.
+            first = encode(0)
+            kept = tuple(f.clone() for f in first)
+            second = encode(1)
+            held_to(second, want[1], f"{name} encode beside a held grid")
+            if not all(torch.equal(a, b) for a, b in zip(first, kept)):
+                raise AssertionError(f"{name}: a held grid changed")
+            del first, second
+            held_to(encode(2), want[2], f"{name} encode after release")
+            expect(f"{name} held grid", {"captures": 0, "replays": 2,
+                                         "eager": 1})
+
+            if name == "exp_kitti_360":
+                # Depth frames through the evaluator, as the benchmark's
+                # stream runs them.
+                tracing.reset(GRAPH_COUNTERS)
+                ev = DepthEvaluator(
+                    net, renderer_lib.RendererConfig.from_conf(
+                        conf["renderer"]), model_conf)
+                depths = [ev.render(images[i], projs, poses)
+                          for i in range(frames)]
+                torch.cuda.synchronize()
+                if not all(torch.isfinite(d).all() for d in depths):
+                    raise AssertionError("encoder graph: depth not finite")
+                expect(f"{name} depth frames",
+                       {"captures": 0, "replays": frames, "eager": 0})
+                res["depth_frames"] = frames
+
+            # New weights: load_weights copies in place (the next replay
+            # reads them, no capture); assign=True gives new storage (a
+            # capture).
+            tracing.reset(GRAPH_COUNTERS)
+            before = tuple(f.clone() for f in encode(0))
+            load_weights(net, paths[1])
+            new = tuple(f.clone() for f in eager(0))
+            if all(torch.equal(a, b) for a, b in zip(before, new)):
+                raise AssertionError(f"{name}: the second weights encode "
+                                     "as the first")
+            held_to(encode(0), new, f"{name} after load_weights")
+            expect(f"{name} load_weights", {"captures": 0, "replays": 2,
+                                            "eager": 0})
+            state = {k: v.clone() for k, v in net.state_dict().items()}
+            net.load_state_dict(state, assign=True)
+            held_to(encode(0), new, f"{name} after assign=True")
+            expect(f"{name} assign=True", {"captures": 1, "replays": 3,
+                                           "eager": 0})
+            res["graphs"] = len(net.encoder_graphs._graphs)
+
+            # Host issue and card ms an encode, the graph's and eager.
+            res["issue_ms"] = {"graph": issue_ms(lambda: encode(0)),
+                               "eager": issue_ms(lambda: eager(0))}
+            res["cuda_ms"] = {
+                "graph": cuda_ms(lambda: encode(0), iters=timed),
+                "eager": cuda_ms(lambda: eager(0), iters=timed)}
+            out[name] = res
+            mib = {k: {kk: round(vv / 2**20, 1) for kk, vv in v.items()}
+                   for k, v in mem.items()}
+            print(f"[chip_smoke] encoder graph {name} ({card}): "
+                  f"{res['shape']} bf16, {calls} calls from one capture, "
+                  f"max abs deviation from eager {worst[0]:.3e} "
+                  f"({worst[1]} values, {worst[2]:.2f} bf16 spacings); "
+                  f"issue {res['issue_ms']['graph']:.3f} ms graph against "
+                  f"{res['issue_ms']['eager']:.3f} eager, card "
+                  f"{res['cuda_ms']['graph']:.3f} against "
+                  f"{res['cuda_ms']['eager']:.3f} ms; memory MiB above the "
+                  f"weights {json.dumps(mib)}", flush=True)
+            net = ev = want = None
+            torch.cuda.empty_cache()
+            log(f"phase 29 encoder graph {name}", "replays held to the "
+                "eager encode", t)
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3715,6 +3937,9 @@ def main() -> None:
                                      launches, max(errs), mode, found[0]))
     log("phase 27-28 kernel timing", f"their kernels, {card}", t)
 
+    # -- 29: the inference encode from CUDA graphs -------------------------
+    encoder_graphs = encoder_graph_phase(dev, card)
+
     print(json.dumps({"frame_ms": frame_ms, "encode_ms": encode_ms,
                       "serving": serving, "general_path": general["means"],
                       "train_parity": parity, "training": training,
@@ -3725,7 +3950,7 @@ def main() -> None:
                       "tile_fetch": tile_res, "demos": demos,
                       "parallel": parallel, "extra_data": extra,
                       "spatial": spatial, "k360_eval": k360_eval,
-                      "videos": videos}),
+                      "videos": videos, "encoder_graph": encoder_graphs}),
           flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
