@@ -10,16 +10,15 @@ whatever implements it.
 """
 from __future__ import annotations
 
+from port_bench.reference.model import (RESNET, fine_mlp, is_spatial,
+                                        mlp_widths)
+
 # Published peaks of one NVIDIA H100 SXM at 700 W (NVIDIA's data sheet and
 # the H100 architecture white paper; dense rates).
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
 BF16_VEC_FLOP_S = 133.8e12
 BF16_FLOP_S = 989e12
-
-_RESNET = {18: ("basic", (2, 2, 2, 2), (64, 64, 128, 256, 512)),
-           34: ("basic", (3, 4, 6, 3), (64, 64, 128, 256, 512)),
-           50: ("bottleneck", (3, 4, 6, 3), (64, 256, 512, 1024, 2048))}
 
 
 def _out(size: int, k: int, s: int, p: int) -> int:
@@ -31,9 +30,15 @@ def _conv(cin, cout, k, h, w) -> int:
 
 
 def encoder_flops(model_conf: dict, h: int, w: int) -> int:
-    """Forward FLOPs of the monodepth2 encoder over one h x w image."""
+    """Forward FLOPs of the encoder over one h x w image: the ResNet
+    trunk, then monodepth2's decoder; the spatial encoder's trunk only up
+    to its last map used (pixelNeRF runs no later stage) and no decoder
+    (the resize of its maps is not counted)."""
     enc = model_conf["encoder"]
-    kind, counts, ch_enc = _RESNET[enc["resnet_layers"]]
+    kind, counts, ch_enc = RESNET[enc["resnet_layers"]]
+    spatial = is_spatial(model_conf)
+    if spatial:
+        counts = counts[:enc["num_layers"] - 1]
     hh, ww = _out(h, 7, 2, 3), _out(w, 7, 2, 3)
     total = _conv(3, 64, 7, hh, ww)
     sizes = [(hh, ww)]
@@ -56,6 +61,8 @@ def encoder_flops(model_conf: dict, h: int, w: int) -> int:
                 total += _conv(inplanes, out, 1, ho, wo)
             inplanes, hh, ww = out, ho, wo
         sizes.append((hh, ww))
+    if spatial:
+        return total
     d_out = enc["d_out"]
     ch = [max(d_out, c) for c in enc["num_ch_dec"]]
     c_cur = ch_enc[-1]
@@ -71,26 +78,28 @@ def encoder_flops(model_conf: dict, h: int, w: int) -> int:
     return total + _conv(ch[0], d_out, 3, hh, ww)
 
 
-def mlp_flops_per_sample(model_conf: dict) -> int:
-    """Forward FLOPs of the field MLP on one sample's concatenated input."""
-    code = model_conf["code"]
-    d_in = model_conf["encoder"]["d_out"] + 3 * (
-        2 * code["num_freqs"] + int(code.get("include_input", True)))
-    mlp = model_conf["mlp_coarse"]
-    hid = mlp["d_hidden"]
-    return 2 * (d_in * hid + hid + mlp["n_blocks"] * 2 * hid * hid)
+def mlp_flops_per_sample(model_conf: dict, name: str = "mlp_coarse") -> int:
+    """Forward FLOPs of the field MLP `name` on one sample's concatenated
+    input (the latent and the code)."""
+    d_in, hid, d_out, blocks = mlp_widths(model_conf, name)
+    return 2 * (d_in * hid + hid * d_out + blocks * 2 * hid * hid)
 
 
 def train_step_flops(conf: dict) -> int:
     """Model FLOPs of one training micro-step: the encoder over each item's
-    encoder view and the MLP over every coarse sample, forward and
-    backward (three forwards)."""
-    mc = conf["model_conf"]
+    encoder view, the coarse MLP over every coarse sample and, with a
+    fine pass, the fine pass's MLP over every coarse and fine sample,
+    forward and backward (three forwards)."""
+    mc, rc = conf["model_conf"], conf["renderer"]
     h, w = conf["data"]["image_size"]
     n = conf["batch_size"]
-    samples = n * mc["ray_batch_size"] * conf["renderer"]["n_coarse"]
-    return 3 * (n * encoder_flops(mc, h, w)
-                + samples * mlp_flops_per_sample(mc))
+    rays = n * mc["ray_batch_size"]
+    total = (n * encoder_flops(mc, h, w)
+             + rays * rc["n_coarse"] * mlp_flops_per_sample(mc))
+    if rc.get("n_fine", 0) > 0:
+        total += rays * (rc["n_coarse"] + rc["n_fine"]) \
+            * mlp_flops_per_sample(mc, fine_mlp(mc))
+    return 3 * total
 
 
 def depth_frame_flops(conf: dict) -> int:

@@ -158,7 +158,11 @@ def train_setup(conf, mix, seed, device, timer, fault=None):
     weights = make_weights(conf["model_conf"], seed, device)
     sync(device)
     timer("weights")
-    trainer = port.make_trainer(conf, weights, device)
+    prog_conf = conf
+    if fault == "fine_pass_dropped":
+        prog_conf = copy.deepcopy(conf)
+        prog_conf["renderer"].update(n_fine=0, n_fine_depth=0)
+    trainer = port.make_trainer(prog_conf, weights, device)
     del weights
     if fault == "state_unchanged":
         trainer._update = lambda: None
@@ -396,8 +400,11 @@ def run(workload, seed, seconds, trace, device=None, overrides=None,
     """One run of a cell. Returns (result dict, set-up split dict).
     device None means the card (the caller has checked it is there);
     overrides, mix_overrides: dicts merged into the config's "port"
-    block and into the mix (tests cut sizes with them); fault: plants a
-    fault in the timed path (tests); t_process: when the process started
+    block and into the mix (tests cut sizes and change the model with
+    them); fault: plants a fault in the timed path (tests:
+    "state_unchanged", "half_batch", "fine_pass_dropped" (the program runs
+    no fine pass, the reference does), "answer_altered"); t_process: when
+    the process started
     (the start of `setup_s`; default now)."""
     t_start = t_process if t_process is not None else time.time()
     split, last = {}, [t_start]
@@ -539,8 +546,12 @@ def p95(values) -> float:
 
 
 def _merge(base: dict, over: dict) -> None:
+    """Merge `over` into `base`, dict into dict; a block whose "type"
+    differs from the base's (another encoder, another MLP) replaces it
+    whole, since its keys are its own."""
     for k, v in over.items():
-        if isinstance(v, dict) and isinstance(base.get(k), dict):
+        if isinstance(v, dict) and isinstance(base.get(k), dict) \
+                and v.get("type", base[k].get("type")) == base[k].get("type"):
             _merge(base[k], v)
         else:
-            base[k] = v
+            base[k] = copy.deepcopy(v)

@@ -1,6 +1,7 @@
 """Everything the benchmark takes from the program under test, the port
-(`behindthescenes_tpu_torch`): its trainer, its depth evaluator and its
-kernel library. No other file of the benchmark
+(`behindthescenes_tpu_torch`): its trainer, its depth evaluator, its
+kernel library, and its tracing switch and counters
+(`behindthescenes_tpu_torch.tracing`). No other file of the benchmark
 imports the port, and the reference imports none of it.
 """
 from __future__ import annotations
@@ -46,13 +47,19 @@ def make_trainer(conf: dict, weights: dict, device):
 
 
 def port_draws(draws: dict):
-    """The benchmark's draws of one micro-step as the port's `Draws`."""
+    """The benchmark's draws of one micro-step as the port's `Draws`, the
+    fine pass's as its `FineDraws` where there are any."""
     from behindthescenes_tpu_torch.ray_sampler import PatchDraws
+    from behindthescenes_tpu_torch.renderer import FineDraws
     from behindthescenes_tpu_torch.training.wrapper import Draws
+    fine = None
+    if "fine_u" in draws:
+        fine = FineDraws(u=draws["fine_u"], jitter=draws["fine_jitter"],
+                         normals=draws["fine_normals"])
     return Draws(flip=draws["flip"],
                  rays=PatchDraws(views=draws["views"], ys=draws["ys"],
                                  xs=draws["xs"]),
-                 z_jitter=draws["z_jitter"])
+                 z_jitter=draws["z_jitter"], fine=fine)
 
 
 def first_gradient(trainer) -> dict:
@@ -85,3 +92,32 @@ def make_depth_evaluator(conf: dict, weights: dict, device):
     net.load_state_dict(weights, strict=True)
     cfg = renderer_lib.RendererConfig.from_conf(conf["renderer"])
     return DepthEvaluator(net, cfg, conf["model_conf"])
+
+
+# ------------------------------------------------------------- tracing
+def _tracing():
+    """The port's tracing module, or None for a program without one (the
+    port before it had spans): the span metrics then read nothing."""
+    try:
+        from behindthescenes_tpu_torch import tracing
+    except ImportError:
+        return None
+    return tracing
+
+
+def tracing_available() -> bool:
+    return _tracing() is not None
+
+
+def set_tracing(on: bool) -> None:
+    """Turn the port's spans on or off."""
+    _tracing().enable(on)
+
+
+def counters() -> dict:
+    """The port's counters: launches.<kernel>, h2d_copies, h2d_bytes."""
+    return _tracing().counters()
+
+
+def reset_counters() -> None:
+    _tracing().reset()

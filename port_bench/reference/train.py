@@ -51,12 +51,17 @@ def follow(conf: dict, weights: dict, steps: list, seed: int,
     state, losses, eas, first = {}, [], [], None
     for i, (batch, draws) in enumerate(steps):
         b = {k: v.to(dtype) for k, v in batch.items()}
-        d = dict(draws, z_jitter=draws["z_jitter"].to(dtype))
+        d = {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point()
+             else v for k, v in draws.items()}
         loss, terms = train_loss(p, b, ids[i], d, conf, prec)
-        grads = torch.autograd.grad(loss, [p[n] for n in names])
+        # A leaf the loss does not reach (the spatial encoder's later
+        # stages) has a zero gradient.
+        grads = torch.autograd.grad(loss, [p[n] for n in names],
+                                    allow_unused=True)
         losses.append(float(loss.detach()))
         eas.append(float(terms["loss_eas"].detach()))
-        g = dict(zip(names, grads))
+        g = {n: torch.zeros_like(p[n]) if gr is None else gr
+             for n, gr in zip(names, grads)}
         if first is None:
             first = leaf_norms(g, names)
         k = i % acc_steps

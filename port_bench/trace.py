@@ -6,6 +6,22 @@ intervals of kernels, memory copies and memory sets (a copy overlapping a
 kernel counts once); launches are the kernels; each gap between busy
 intervals is named by the innermost host operation running when it
 began, which says what the host was doing while the device waited.
+
+`reduce_spans` reads a stretch by the program's own spans (`spans.py`),
+on the profiler's clock. Each root span (a micro-step's `train_step`, a
+frame's `depth_frame`) is tiled by its stage spans: a stage runs from
+the previous stage's end, or the root's start, to its own end (the last
+to the root's end). Per span name:
+- idle: the interval less the part the union of kernel, copy and set
+  intervals covers;
+- launches: kernels whose launching runtime call (joined by
+  `args.correlation`, on any thread, so that the autograd thread's
+  launches fall in "backward") starts inside it;
+- syncs: cudaStreamSynchronize, cudaDeviceSynchronize,
+  cudaEventSynchronize and blocking cudaMemcpy calls that start inside;
+- h2d_pageable: pageable host-to-device copies launched inside.
+Outside idle is the idle of the stretch outside every root, so the
+stages' idle and the outside idle add up to the stretch's idle.
 """
 from __future__ import annotations
 
@@ -17,6 +33,10 @@ import tempfile
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver",
              "python_function")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+# The categories of the trace's CUDA API calls.
+API_CATS = tuple(c for c in HOST_CATS if c.startswith("cuda"))
 
 
 def merge(spans):
@@ -80,6 +100,123 @@ def reduce_events(events: list) -> dict:
             "kernels": kernels,
             "device_ops": [[n, s] for n, s in top],
             "idle_gaps": [[n, s] for n, s in idle]}
+
+
+class _Intervals:
+    """Sorted, disjoint (start, end, name) intervals; `find(t)` gives the
+    name of the one holding t, or None."""
+
+    def __init__(self, spans):
+        self.spans = sorted(spans)
+        self.starts = [s[0] for s in self.spans]
+
+    def find(self, t):
+        i = bisect.bisect_right(self.starts, t) - 1
+        if i >= 0 and t < self.spans[i][1]:
+            return self.spans[i][2]
+        return None
+
+
+def _covered(busy, starts, a, b) -> float:
+    """The length of [a, b] that the merged intervals `busy` cover."""
+    i = max(bisect.bisect_right(starts, a) - 1, 0)
+    total = 0.0
+    while i < len(busy) and busy[i][0] < b:
+        total += max(0.0, min(b, busy[i][1]) - max(a, busy[i][0]))
+        i += 1
+    return total
+
+
+def _stages(root, notes):
+    """The top-level annotations inside `root` on its thread, in order."""
+    r0, r1 = root["ts"], root["ts"] + root["dur"]
+    kids = sorted((e for e in notes if e is not root
+                   and e.get("tid") == root.get("tid")
+                   and e.get("pid") == root.get("pid")
+                   and r0 <= e["ts"] and e["ts"] + e["dur"] <= r1),
+                  key=lambda e: (e["ts"], -e["dur"]))
+    top, end = [], r0
+    for e in kids:
+        if e["ts"] >= end:
+            top.append(e)
+            end = e["ts"] + e["dur"]
+    return top
+
+
+def reduce_spans(events: list, root: str, window=None) -> dict:
+    """Idle seconds, launches, syncs and pageable host-to-device copies
+    per span name, over the roots named `root` and the stage spans that
+    tile them, and the idle outside every root, within `window` (the
+    annotation of that name; default: the first root's start to the last
+    root's end). Times in seconds."""
+    xs = [e for e in events if e.get("ph") == "X"]
+    dev = [e for e in xs if e.get("cat") in DEVICE_CATS]
+    busy = merge((e["ts"], e["ts"] + e["dur"]) for e in dev)
+    starts = [b[0] for b in busy]
+    notes = [e for e in xs if e.get("cat") == "user_annotation"]
+    roots = sorted((e for e in notes if e["name"] == root),
+                   key=lambda e: e["ts"])
+    if window is not None:
+        win = next(e for e in notes if e["name"] == window)
+        w0, w1 = win["ts"], win["ts"] + win["dur"]
+    elif roots:
+        w0, w1 = roots[0]["ts"], max(e["ts"] + e["dur"] for e in roots)
+    else:
+        w0 = w1 = 0.0
+    out = {"roots": len(roots), "window_s": (w1 - w0) / 1e6,
+           "busy_s": _covered(busy, starts, w0, w1) / 1e6, "spans": {}}
+    out["idle_s"] = out["window_s"] - out["busy_s"]
+
+    def entry(name):
+        return out["spans"].setdefault(name, {
+            "idle_s": 0.0, "launches": 0, "syncs": 0, "h2d_pageable": 0})
+
+    tiles, whole = [], []
+    root_idle = 0.0
+    for r in roots:
+        r0, r1 = r["ts"], r["ts"] + r["dur"]
+        whole.append((r0, r1, root))
+        idle = (r1 - r0) - _covered(busy, starts, r0, r1)
+        entry(root)["idle_s"] += idle / 1e6
+        root_idle += idle
+        kids = _stages(r, notes)
+        prev = r0
+        for k, e in enumerate(kids):
+            end = r1 if k == len(kids) - 1 else e["ts"] + e["dur"]
+            tiles.append((prev, end, e["name"]))
+            entry(e["name"])["idle_s"] += \
+                ((end - prev) - _covered(busy, starts, prev, end)) / 1e6
+            prev = end
+    out["outside_idle_s"] = out["idle_s"] - root_idle / 1e6
+    tiles, whole = _Intervals(tiles), _Intervals(whole)
+
+    calls = {}
+    for e in xs:
+        if e.get("cat") in API_CATS:
+            corr = (e.get("args") or {}).get("correlation")
+            if corr is not None:
+                calls[corr] = e["ts"]
+            if e["name"] in SYNC_CALLS:
+                for spans in (tiles, whole):
+                    name = spans.find(e["ts"])
+                    if name is not None:
+                        entry(name)["syncs"] += 1
+    for e in dev:
+        corr = (e.get("args") or {}).get("correlation")
+        if corr not in calls:
+            continue
+        if e["cat"] == "kernel":
+            key = "launches"
+        elif e["cat"] == "gpu_memcpy" and "HtoD" in e["name"] \
+                and "Pageable" in e["name"]:
+            key = "h2d_pageable"
+        else:
+            continue
+        for spans in (tiles, whole):
+            name = spans.find(calls[corr])
+            if name is not None:
+                entry(name)[key] += 1
+    return out
 
 
 def profile(fn) -> tuple:

@@ -110,21 +110,32 @@ def make_batch(data: dict, n: int, gen, device) -> dict:
 
 def make_draws(conf: dict, n: int, n_loss: int, gen, device) -> dict:
     """The random choices of one training micro-step: "flip" (bool),
-    patch "views" (among the loss views), "ys", "xs" (n, pc) int64 and
-    the coarse "z_jitter" (n, R, K) in [0, 1)."""
-    mc = conf["model_conf"]
+    patch "views" (among the loss views), "ys", "xs" (n, pc) int64, the
+    coarse "z_jitter" (n, R, K) in [0, 1) and, after them where the
+    renderer has a fine pass, its "fine_u" and "fine_jitter" (n, R,
+    n_fine - n_fine_depth) in [0, 1) and "fine_normals" (n, R,
+    n_fine_depth) standard normal."""
+    mc, rc = conf["model_conf"], conf["renderer"]
     h, w = conf["data"]["image_size"]
     p, rays = mc["patch_size"], mc["ray_batch_size"]
     pc = rays // (p * p)
 
     def randint(high):
         return torch.randint(0, high, (n, pc), generator=gen, device=device)
-    return {"flip": bool(torch.rand((), generator=gen, device=device) > 0.5)
-            if mc.get("flip_augmentation", False) else False,
-            "views": randint(n_loss), "ys": randint(h - p),
-            "xs": randint(w - p),
-            "z_jitter": torch.rand((n, rays, conf["renderer"]["n_coarse"]),
-                                   generator=gen, device=device)}
+    draws = {"flip": bool(torch.rand((), generator=gen, device=device) > 0.5)
+             if mc.get("flip_augmentation", False) else False,
+             "views": randint(n_loss), "ys": randint(h - p),
+             "xs": randint(w - p),
+             "z_jitter": torch.rand((n, rays, rc["n_coarse"]),
+                                    generator=gen, device=device)}
+    n_fine, n_depth = rc.get("n_fine", 0), rc.get("n_fine_depth", 0)
+    if n_fine > 0:
+        for key in ("fine_u", "fine_jitter"):
+            draws[key] = torch.rand((n, rays, n_fine - n_depth),
+                                    generator=gen, device=device)
+        draws["fine_normals"] = torch.randn((n, rays, n_depth),
+                                            generator=gen, device=device)
+    return draws
 
 
 def n_loss_views(conf: dict) -> int:
