@@ -9,7 +9,10 @@ size, on the card.
 A training cell's readings need no measured window: set-up's first
 micro-steps are the ones compared. A depth cell's program readings come
 from a short stream in the cell's closed loop (`--frames` frames), its
-control from the same frames. Prints one JSON line and writes it to --out.
+control from the same frames. A data-parallel cell's ranks read every
+seed in one process group, each --fault (which may repeat) on the first
+--fault-seeds seeds too, and the references run once the ranks have
+ended. Prints one JSON line and writes it to --out.
 """
 from __future__ import annotations
 
@@ -86,13 +89,31 @@ def depth_readings(workload, seed, device, control: bool, frames: int,
     return out
 
 
+def dp_rows(workload, seeds, control_seeds, faults, fault_seeds, device,
+            overrides=None, mix_overrides=None) -> list:
+    """Rows of a data-parallel cell (`loops.train_dp.readings`): each
+    seed's program, the first `control_seeds` seeds' control and
+    bfloat16 reference, each fault's program on the first `fault_seeds`
+    seeds."""
+    from port_bench.loops import train_dp
+    conf, mix = cell_conf(workload, overrides, mix_overrides)
+    runs = [(s, None) for s in seeds] \
+        + [(s, f) for f in faults for s in seeds[:fault_seeds]]
+    rows = train_dp.readings(conf, mix, runs, set(seeds[:control_seeds]),
+                             device)
+    for row in rows:
+        print(json.dumps(row), file=sys.stderr, flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, default=12)
     ap.add_argument("--control-seeds", type=int, default=4)
     ap.add_argument("--first-seed", type=int, default=SEED0)
-    ap.add_argument("--fault", default=None)
+    ap.add_argument("--fault", action="append", default=[])
+    ap.add_argument("--fault-seeds", type=int, default=3)
     ap.add_argument("--frames", type=int, default=96)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -100,30 +121,41 @@ def main(argv=None) -> int:
     harness.port.exact_f32()
     set_exact()
     _, _, _, mix = harness.load_spec(args.workload)
-    rows = []
-    for k in range(args.seeds):
-        seed = args.first_seed + 7919 * k
-        t = time.time()
-        if mix["loop"] == "train":
-            got = train_readings(args.workload, seed, device,
-                                 k < args.control_seeds, args.fault)
-        else:
-            got = depth_readings(args.workload, seed, device,
-                                 k < args.control_seeds, args.frames,
-                                 args.fault)
-        got.update(seed=seed, seconds=time.time() - t)
-        rows.append(got)
-        print(json.dumps(got), file=sys.stderr, flush=True)
-        torch.cuda.empty_cache()
+    seeds = [args.first_seed + 7919 * k for k in range(args.seeds)]
+    if mix["loop"] == "train_dp":
+        rows = dp_rows(args.workload, seeds, args.control_seeds, args.fault,
+                       args.fault_seeds, device)
+    elif len(args.fault) > 1:
+        raise SystemExit("one --fault at a time on one card")
+    else:
+        fault = args.fault[0] if args.fault else None
+        rows = []
+        for k, seed in enumerate(seeds):
+            t = time.time()
+            if mix["loop"] == "train":
+                got = train_readings(args.workload, seed, device,
+                                     k < args.control_seeds, fault)
+            else:
+                got = depth_readings(args.workload, seed, device,
+                                     k < args.control_seeds, args.frames,
+                                     fault)
+            got.update(seed=seed, seconds=time.time() - t)
+            rows.append(got)
+            print(json.dumps(got), file=sys.stderr, flush=True)
+            torch.cuda.empty_cache()
     summary = {}
-    for side in ("program", "control"):
-        vals = [r[side] for r in rows if side in r]
+    sides = [("program", None), ("control", None)] \
+        + [("program", f) for f in args.fault if mix["loop"] == "train_dp"]
+    for side, fault in sides:
+        vals = [r[side] for r in rows if side in r
+                and r.get("fault") == fault]
         if vals:
-            summary[side] = {k: {"max": max(v[k] for v in vals),
-                                 "min": min(v[k] for v in vals),
-                                 "median": float(np.median([v[k]
-                                                            for v in vals]))}
-                             for k in vals[0]}
+            key = side if fault is None else "fault:" + fault
+            summary[key] = {k: {"max": max(v[k] for v in vals),
+                                "min": min(v[k] for v in vals),
+                                "median": float(np.median([v[k]
+                                                           for v in vals]))}
+                            for k in vals[0]}
     out = {"workload": args.workload, "fault": args.fault,
            "card": torch.cuda.get_device_name(0), "rows": rows,
            "summary": summary}

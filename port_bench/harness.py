@@ -4,12 +4,15 @@ the reference check, the result.
 A cell is an entry of `BENCHMARK.json`'s "workloads": a configuration
 (`configs/<config>.json`, whose "port" block is the program's config as
 it is run) and a traffic mix (`traffic/<mix>.json`). The mix's "loop"
-picks the driver: "train" or "depth_stream". Per-layer metrics are read
+picks the driver: "train" or "depth_stream" here, any other the module
+`loops/<loop>.py` by its name (its `run`, called as this module's `run`
+would be, after the cell's files are read). Per-layer metrics are read
 by `metrics/<name>.py`, found by the metric's name.
 """
 from __future__ import annotations
 
 import copy
+import functools
 import gc
 import importlib.util
 import json
@@ -105,6 +108,7 @@ class Run:
         self.latency_ms = []     # frames' service latencies
         self.trace = None        # trace_lib.reduce_events + window_s, count
         self.work_flops = 0      # model FLOPs of one step or frame
+        self.chips = 1           # the cards that work runs on
 
 
 def load_reader(name: str):
@@ -153,8 +157,24 @@ def host_state(a: dict, b: dict) -> dict:
             "mhz_mean": sum(mhz) / len(mhz) if mhz else None}
 
 
+def setup_timer(t_start: float) -> tuple:
+    """(split, timer): timer(name) records in split the wall seconds since
+    its previous call, the first since `t_start`."""
+    split, last = {}, [t_start]
+
+    def timer(name):
+        now = time.time()
+        split[name] = now - last[0]
+        last[0] = now
+    return split, timer
+
+
 # ---------------------------------------------------------------- training
-def train_setup(conf, mix, seed, device, timer, fault=None):
+def train_setup(conf, mix, seed, device, timer, fault=None,
+                make_pool=traffic.train_pool):
+    """The trainer from the seed's weights, the pool `make_pool(conf, mix,
+    seed, device)` gives, and the readings of the first `check_steps`
+    micro-steps driven through the window's own call."""
     weights = make_weights(conf["model_conf"], seed, device)
     sync(device)
     timer("weights")
@@ -166,9 +186,11 @@ def train_setup(conf, mix, seed, device, timer, fault=None):
     del weights
     if fault == "state_unchanged":
         trainer._update = lambda: None
+    elif fault == "allreduce_dropped":
+        trainer._reduce_grads = lambda: None
     sync(device)
     timer("program")
-    pool = traffic.train_pool(conf, mix, seed, device)
+    pool = make_pool(conf, mix, seed, device)
     sync(device)
     timer("inputs")
     names = list(port.parameters(trainer))
@@ -204,14 +226,19 @@ def feed(pool, i, fault=None):
 
 
 def train_window(trainer, pool, start, seconds, device, clock=None,
-                 fault=None):
-    """Closed loop of micro-steps over the pool for `seconds`; returns
-    (micro-steps, window seconds, loss tensors)."""
+                 fault=None, stop=None):
+    """Closed loop of micro-steps over the pool for `seconds`, or until
+    stop(micro-steps so far, seconds so far), asked before each
+    micro-step, is true; returns (micro-steps, window seconds, loss
+    tensors)."""
     mark = clock.mark if clock is not None else None
+    if stop is None:
+        def stop(_steps, elapsed):
+            return elapsed >= seconds
     losses, i = [], start
     sync(device)
     t0 = time.perf_counter()
-    while time.perf_counter() - t0 < seconds:
+    while not stop(i - start, time.perf_counter() - t0):
         batch, draws = feed(pool, i, fault)
         if clock is not None:
             clock.start()
@@ -220,6 +247,17 @@ def train_window(trainer, pool, start, seconds, device, clock=None,
         i += 1
     sync(device)
     return i - start, time.perf_counter() - t0, losses
+
+
+def train_stretch(trainer, pool, first, n, device, fault=None) -> tuple:
+    """Micro-steps on the pool's batches first, first + 1, ... (n of
+    them), to the end on the device: (n, their seconds)."""
+    t0 = time.perf_counter()
+    for k in range(n):
+        batch, draws = feed(pool, first + k, fault)
+        trainer.train_step(batch, port.port_draws(draws))
+    sync(device)
+    return n, time.perf_counter() - t0
 
 
 def train_check(conf, mix, seed, device, pool, readings):
@@ -403,23 +441,25 @@ def run(workload, seed, seconds, trace, device=None, overrides=None,
     block and into the mix (tests cut sizes and change the model with
     them); fault: plants a fault in the timed path (tests:
     "state_unchanged", "half_batch", "fine_pass_dropped" (the program runs
-    no fine pass, the reference does), "answer_altered"); t_process: when
-    the process started
-    (the start of `setup_s`; default now)."""
+    no fine pass, the reference does), "answer_altered"; on several
+    ranks "allreduce_dropped" (each rank steps on its own gradient) and
+    "shard_repeated" (every rank trains on rank 0's rows)); t_process:
+    when the process started (the start of `setup_s`; default now)."""
     t_start = t_process if t_process is not None else time.time()
-    split, last = {}, [t_start]
-
-    def timer(name):
-        now = time.time()
-        split[name] = now - last[0]
-        last[0] = now
-
+    split, timer = setup_timer(t_start)
     bench, cell, config, mix = load_spec(workload)
     conf = copy.deepcopy(config["port"])
     conf["data"] = copy.deepcopy(config["data"])
     _merge(conf, overrides or {})
     conf["seed"] = int(seed)
     mix = dict(mix, **(mix_overrides or {}))
+    loop = mix["loop"]
+    if loop not in ("train", "depth_stream"):
+        if not os.path.exists(os.path.join(HERE, "loops", loop + ".py")):
+            raise ValueError(f"unknown loop {loop!r}")
+        driver = importlib.import_module("port_bench.loops." + loop)
+        return driver.run(bench, workload, conf, mix, seed, seconds, trace,
+                          device, fault, t_start)
     port.import_program()
     timer("imports")
     device = torch.device(device or "cuda")
@@ -433,17 +473,14 @@ def run(workload, seed, seconds, trace, device=None, overrides=None,
         kind = "cpu"
     timer("cuda_init")
     r = Run(workload, conf, mix)
-    loop = mix["loop"]
     if loop == "train":
         r.work_flops = flops.train_step_flops(conf)
         trainer, pool, readings = train_setup(conf, mix, seed, device, timer,
                                               fault)
         split["kernel_library"] = 0.0
-    elif loop == "depth_stream":
+    else:
         r.work_flops = flops.depth_frame_flops(conf)
         stream = depth_setup(conf, mix, seed, device, timer, fault)
-    else:
-        raise ValueError(f"unknown loop {loop!r}")
     setup_s = time.time() - t_start
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -473,15 +510,9 @@ def run(workload, seed, seconds, trace, device=None, overrides=None,
         r.stages = clock.stages()
     if trace and device.type == "cuda":
         if loop == "train":
-            n_traced = mix["trace_steps"]
-
-            def stretch():
-                t0 = time.perf_counter()
-                for k in range(n_traced):
-                    batch, draws = feed(pool, start + r.count + k, fault)
-                    trainer.train_step(batch, port.port_draws(draws))
-                sync(device)
-                return n_traced, time.perf_counter() - t0
+            stretch = functools.partial(train_stretch, trainer, pool,
+                                        start + r.count, mix["trace_steps"],
+                                        device, fault)
         else:
             n_traced = mix["trace_frames"]
 
@@ -510,6 +541,20 @@ def run(workload, seed, seconds, trace, device=None, overrides=None,
         numbers = train_check(conf, mix, seed, device, pool, readings)
     else:
         numbers = depth_check(conf, mix, seed, device, frames, kept)
+    dev_info = {"platform": "gpu" if device.type == "cuda" else "cpu",
+                "kind": kind, "count": 1, "memory_peak_bytes": int(peak)}
+    return result_line(bench, r, trace, e2e, numbers, dev_info, failed,
+                       host), split
+
+
+def result_line(bench, r, trace, e2e, numbers, dev_info, failed, host):
+    """The result of run `r`: correct from the compared `numbers` and the
+    cell's limits, its end-to-end metrics `e2e` (trace off) or its
+    per-layer metrics as the readers read `r` (trace on), the device,
+    with the traced stretch's busy and window seconds and breakdown, the
+    host's state over the window, and last the compared numbers with
+    their limits."""
+    workload = r.workload
     correct, compared = check.judge(numbers, check.load_limits(workload))
     metrics = {}
     if trace:
@@ -523,8 +568,6 @@ def run(workload, seed, seconds, trace, device=None, overrides=None,
             if applies(m, workload):
                 metrics[m["name"]] = {"value": e2e[m["name"]],
                                       "unit": m["unit"]}
-    dev_info = {"platform": "gpu" if device.type == "cuda" else "cpu",
-                "kind": kind, "count": 1, "memory_peak_bytes": int(peak)}
     result = {"correct": correct, "attempted": r.count, "failed": failed,
               "metrics": metrics, "device": dev_info}
     if r.trace is not None:
@@ -535,7 +578,7 @@ def run(workload, seed, seconds, trace, device=None, overrides=None,
             for key in ("device_ops", "idle_gaps")}
     result["host"] = host
     result["check"] = compared
-    return result, split
+    return result
 
 
 def p95(values) -> float:

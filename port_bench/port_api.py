@@ -1,6 +1,7 @@
 """Everything the benchmark takes from the program under test, the port
 (`behindthescenes_tpu_torch`): its trainer, its depth evaluator, its
-kernel library, and its tracing switch and counters
+kernel library, its launcher of ranks and the collective that agrees a
+flag over them (`parallel/`), and its tracing switch and counters
 (`behindthescenes_tpu_torch.tracing`). No other file of the benchmark
 imports the port, and the reference imports none of it.
 """
@@ -92,6 +93,24 @@ def make_depth_evaluator(conf: dict, weights: dict, device):
     net.load_state_dict(weights, strict=True)
     cfg = renderer_lib.RendererConfig.from_conf(conf["renderer"])
     return DepthEvaluator(net, cfg, conf["model_conf"])
+
+
+# ---------------------------------------------------------------- ranks
+def run_ranks(fn, world: int, args: tuple, backend: str, timeout: float):
+    """fn(rank, world, *args) on `world` new processes joined into one
+    process group (a file rendezvous); their results in rank order. A
+    rank that raises, or ranks that outlast `timeout` seconds, stop
+    every rank and raise here."""
+    from behindthescenes_tpu_torch.parallel.launch import run_ranks as run
+    return run(fn, world, args, backend=backend, timeout=timeout)
+
+
+def any_rank(flag: bool) -> bool:
+    """Whether `flag` is set on any rank of the default group (every rank
+    calls it; `flag` itself on one rank)."""
+    from behindthescenes_tpu_torch.parallel.mesh import (any_rank as agree,
+                                                         default_group)
+    return agree(flag, default_group())
 
 
 # ------------------------------------------------------------- tracing

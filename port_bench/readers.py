@@ -15,11 +15,12 @@ def stage_ms(run, stage: str):
 
 def mfu(run):
     """Model FLOPs of the window's steps or frames over the window's
-    seconds and the card's bf16 tensor-core peak, in %."""
+    seconds and the bf16 tensor-core peak of the cards they ran on, in
+    %."""
     if not run.window_s or not run.count or run.trace is None:
         return None
     return 100.0 * run.work_flops * run.count / run.window_s \
-        / flops.BF16_FLOP_S
+        / (run.chips * flops.BF16_FLOP_S)
 
 
 def idle_share(run):
@@ -34,6 +35,14 @@ def launches_per(run):
     if run.trace is None or not run.trace["count"]:
         return None
     return run.trace["launches"] / run.trace["count"]
+
+
+def alone_seconds(run, piece: str) -> float:
+    """Seconds of the traced stretch in which kernels whose name holds
+    `piece` ran and no other device operation did."""
+    if run.trace is None:
+        return 0.0
+    return sum(s for name, s in run.trace["alone"].items() if piece in name)
 
 
 def kernel_seconds(run, piece: str):

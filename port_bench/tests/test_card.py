@@ -14,8 +14,12 @@ from port_bench.tests.test_cells import BENCH, CELLS, ROOT
 @pytest.mark.card
 @pytest.mark.parametrize("workload", CELLS)
 def test_cell_on_the_card(workload):
+    chips = next(w["chips"] for w in BENCH["workloads"]
+                 if w["name"] == workload)
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card here")
+    if torch.cuda.device_count() < chips:
+        pytest.skip(f"{workload} needs {chips} CUDA cards")
     proc = subprocess.run(
         [sys.executable, "-m", "port_bench.run", "--workload", workload,
          "--seed", "2147483999", "--seconds", "3", "--trace", "1"],

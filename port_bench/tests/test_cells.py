@@ -33,7 +33,7 @@ def test_cell_runs_and_is_correct(workload, trace):
     assert set(split) == {"imports", "cuda_init", "kernel_library",
                           "weights", "program", "inputs", "warm_up"}
     line = json.loads(json.dumps(result))
-    assert line["device"]["count"] == 1
+    assert line["device"]["count"] == mix.get("ranks", 1)
     if not trace:
         wanted = {m["name"] for m in BENCH["end_to_end"]
                   if harness.applies(m, workload)}
@@ -51,7 +51,8 @@ def test_every_metric_has_a_reader():
 def test_every_cell_has_its_files():
     for w in BENCH["workloads"]:
         _, cell, config, mix = harness.load_spec(w["name"])
-        assert mix["loop"] in ("train", "depth_stream")
+        assert mix["loop"] in ("train", "depth_stream") or os.path.exists(
+            os.path.join(ROOT, "port_bench", "loops", mix["loop"] + ".py"))
         assert config["name"] == cell["config"]
         assert os.path.exists(os.path.join(
             ROOT, "port_bench", "limits", w["name"] + ".json"))

@@ -5,7 +5,9 @@ Chrome trace is read back once. Device busy time is the union of the
 intervals of kernels, memory copies and memory sets (a copy overlapping a
 kernel counts once); launches are the kernels; each gap between busy
 intervals is named by the innermost host operation running when it
-began, which says what the host was doing while the device waited.
+began, which says what the host was doing while the device waited. Per
+name, "alone" is the time in which operations of that name ran and no
+other device operation did (what of a collective no other work hides).
 
 `reduce_spans` reads a stretch by the program's own spans (`spans.py`),
 on the profiler's clock. Each root span (a micro-step's `train_step`, a
@@ -68,10 +70,28 @@ def _host_names(host, gaps):
     return names
 
 
+def alone(dev) -> dict:
+    """{name: seconds in which device operations of that name, and of no
+    other, ran} over the device events `dev`."""
+    edges = sorted([(e["ts"], 1, e["name"]) for e in dev]
+                   + [(e["ts"] + e["dur"], -1, e["name"]) for e in dev],
+                   key=lambda x: (x[0], x[1]))
+    active, out, prev = {}, {}, None
+    for t, step, name in edges:
+        if len(active) == 1 and prev is not None:
+            (only,) = active
+            out[only] = out.get(only, 0.0) + (t - prev) / 1e6
+        active[name] = active.get(name, 0) + step
+        if not active[name]:
+            del active[name]
+        prev = t
+    return out
+
+
 def reduce_events(events: list) -> dict:
-    """busy_s, launches, kernel seconds and counts by name, the ten
-    device operations that took longest in all, and the ten largest idle
-    gap totals by the host's activity."""
+    """busy_s, launches, kernel seconds and counts by name, the seconds
+    each name ran alone, the ten device operations that took longest in
+    all, and the ten largest idle gap totals by the host's activity."""
     dev = [e for e in events if e.get("ph") == "X"
            and e.get("cat") in DEVICE_CATS]
     host = [e for e in events if e.get("ph") == "X"
@@ -97,7 +117,7 @@ def reduce_events(events: list) -> dict:
     idle = sorted(by_host.items(), key=lambda kv: -kv[1])[:10]
     return {"busy_s": sum(b - a for a, b in spans) / 1e6,
             "launches": sum(k[1] for k in kernels.values()),
-            "kernels": kernels,
+            "kernels": kernels, "alone": alone(dev),
             "device_ops": [[n, s] for n, s in top],
             "idle_gaps": [[n, s] for n, s in idle]}
 

@@ -5,8 +5,10 @@ the device from the seed: camera images, the rig's calibration and poses,
 and the draws of each training step.
 
 A mix is parameters only. "loop" says how the cell drives the program:
-"train" (closed loop of training micro-steps over a pool of batches) or
-"depth_stream" (one client that keeps `in_flight` frames in flight).
+"train" (closed loop of training micro-steps over a pool of batches),
+"depth_stream" (one client that keeps `in_flight` frames in flight) or
+"train_dp" (the training loop on `ranks` data-parallel ranks, each with
+a pool of its own).
 """
 from __future__ import annotations
 
@@ -17,6 +19,11 @@ import os
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# A rank's pool is seeded with seed + 1 + rank * RANK_STRIDE, a prime near
+# 2**32 / golden ratio: the CPU's generator keeps a seed's low 32 bits
+# only, in which the ranks' seeds still differ from each other's and
+# from the run's other seeds.
+RANK_STRIDE = 0x9E3779B1
 
 
 def load_json(kind: str, name: str) -> dict:
@@ -150,10 +157,13 @@ def n_loss_views(conf: dict) -> int:
     raise NotImplementedError(mode)
 
 
-def train_pool(conf: dict, mix: dict, seed: int, device) -> list:
-    """`mix["pool"]` (batch, draws) pairs, all different, from the seed."""
+def train_pool(conf: dict, mix: dict, seed: int, device,
+               rank: int = 0) -> list:
+    """`mix["pool"]` (batch, draws) pairs, all different, from the seed
+    and the data-parallel rank whose rows they are (rank 0's are the
+    one-card cells' own)."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(seed + 1)
+    gen.manual_seed(seed + 1 + rank * RANK_STRIDE)
     n = conf["batch_size"]
     nl = n_loss_views(conf)
     return [(make_batch(conf["data"], n, gen, device),
