@@ -25,8 +25,8 @@ from torch import nn
 from behindthescenes_tpu_torch import geometry, tracing
 from behindthescenes_tpu_torch.models.encoder import (ImageEncoder,
                                                       make_backbone)
-from behindthescenes_tpu_torch.models.encoder_graph import (EncoderGraphs,
-                                                            takes_graph)
+from behindthescenes_tpu_torch.models.encoder_graph import (
+    EncoderGraphs, TrainEncoderGraphs, takes_graph, takes_train_graph)
 from behindthescenes_tpu_torch.models.mlp import ResnetFC, make_mlp
 from behindthescenes_tpu_torch.ops.grid_sample import (
     grid_sample_2d, grid_sample_2d_packed, grid_sample_2d_tiles,
@@ -198,6 +198,7 @@ class BTSNet(nn.Module):
         self.learn_empty = learn_empty
         self.encoder = make_backbone(dict(encoder_conf), compute_dtype)
         self.encoder_graphs = EncoderGraphs()
+        self.train_encoder_graphs = TrainEncoderGraphs()
         if isinstance(self.encoder, ImageEncoder):
             # Its (n, latent) output has no pixels to sample: the JAX
             # package's encode fails on it too (the flip of each latent's
@@ -266,7 +267,12 @@ class BTSNet(nn.Module):
         (`encoder_graph.EncoderGraphs`), the same kernels in one launch.
         The grid's features are then the graph's outputs, which the next
         such call overwrites unless they are still held (that call then
-        runs eagerly)."""
+        runs eagerly). On the card with gradient on and train set, the
+        backbone is replayed from this signature's forward graph and its
+        gradient from the backward graph
+        (`encoder_graph.TrainEncoderGraphs`; the flips, the resize and the
+        cast around it run eagerly), eagerly where BatchNorm sums over a
+        process group or an earlier replay is still held."""
         v = images.shape[1]
         dev = images.device
         poses_w2c = geometry.invert_pose(poses_c2w)
@@ -299,13 +305,20 @@ class BTSNet(nn.Module):
     def _features(self, views, do_flip: bool, train: bool):
         """The CNN over the encoder views (n, nv, h, w, 3): per scale the
         (n, nv, h0, w0, c) map in the compute dtype, each latent resized
-        to the first's size."""
+        to the first's size. A training encode on the card takes the
+        backbone's latents from `train_encoder_graphs` where it can."""
         n, nv, h, w, _ = views.shape
         imgs = views.reshape(n * nv, h, w, 3)
         if do_flip:
             imgs = imgs.flip(2)
-        with _bn_mode(self.encoder, train):
-            latents = self.encoder(imgs.permute(0, 3, 1, 2))    # NCHW
+        latents = None
+        if takes_train_graph(imgs.device, train, imgs.requires_grad,
+                             self.encoder):
+            latents = self.train_encoder_graphs.latents(
+                lambda x: self._latents(x, True), imgs, self.compute_dtype,
+                self.encoder)
+        if latents is None:
+            latents = self._latents(imgs, train)
         if do_flip:
             latents = [lat.flip(3) for lat in latents]
         h0, w0 = latents[0].shape[2:]
@@ -314,6 +327,12 @@ class BTSNet(nn.Module):
             _nearest_resize(lat.permute(0, 2, 3, 1), h0, w0)
             .reshape(n, nv, h0, w0, c).to(self.compute_dtype)
             for lat in latents)
+
+    def _latents(self, imgs, train: bool):
+        """The CNN over images (m, h, w, 3): its (m, c, h_s, w_s) latent
+        per scale."""
+        with _bn_mode(self.encoder, train):
+            return self.encoder(imgs.permute(0, 3, 1, 2))    # NCHW
 
     # ----------------------------------------------------------- queries
     def _mlp(self, coarse: bool):

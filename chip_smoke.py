@@ -158,6 +158,19 @@ load_weights read by the next replay and load_state_dict(assign=True)
 captured anew; memory allocated and reserved, and the host's issue and
 the card's time an encode, against the eager encode.
 
+Phase 30 runs the training encode's forward and backward passes from
+CUDA graphs (models/encoder_graph.py, TrainEncoderGraphs) at
+kitti360.train's shapes (exp_kitti_360: ResNet-50, bf16, 4 items x 8
+views at 192x640, accumulate 4): TRAIN_GRAPH_FLIPS micro-steps from one
+initial state eagerly, from the graphs, and eagerly again, with the
+largest differences from the first eager run of each loss, of every
+parameter's gradient before each update, of every parameter after the
+steps and of every BatchNorm buffer, and of the encoder's gradients and
+parameters alone; the counters, memory allocated and reserved, and the
+median step and encode-plus-backward ms both ways. It fails where the
+graph run is further from the first eager run than TRAIN_GRAPH_SLACK
+times the second eager run is.
+
 Prints one progress line per phase (flushed, with the phase's seconds),
 then a JSON line of frame times, metrics and training times, one JSON line
 with a record per kernel, the card's name and power limit, and as the
@@ -683,6 +696,20 @@ GRAPH_FRAMES = 4
 GRAPH_TIMED = 20
 GRAPH_COUNTERS = ("encoder_graph.captures", "encoder_graph.replays",
                   "encoder_graph.eager")
+# Phase 30: the training encode from its pair of CUDA graphs at
+# kitti360.train's shapes, a micro-step's flip each (one update every 4),
+# the steps timed from TRAIN_GRAPH_TIMED_FROM on (after both captures).
+TRAIN_GRAPH_CONFIG = "exp_kitti_360"
+TRAIN_GRAPH_FLIPS = (False, True, True, False, False, True, False, True)
+TRAIN_GRAPH_TIMED_FROM = 2
+# How much further from the first eager run than the second eager run the
+# graph run's gradients, parameters and buffers may be (both move by the
+# render's atomics alone).
+TRAIN_GRAPH_SLACK = 3.0
+TRAIN_GRAPH_COUNTERS = (
+    "encoder_graph.train_captures", "encoder_graph.train_replays",
+    "encoder_graph.train_eager", "encoder_graph.train_eager.group",
+    "encoder_graph.train_eager.held")
 
 
 def log(phase: str, msg: str, t_phase: float) -> None:
@@ -3611,6 +3638,208 @@ def encoder_graph_phase(dev, card: str, runs=GRAPH_RUNS,
     return out
 
 
+def k360_train_batch(conf: dict, seed: int) -> dict:
+    """A training batch at the config's shapes from numpy's generator:
+    images in [-1, 1], each view a camera a little beside and ahead of
+    the first, the KITTI-360 intrinsics in NDC."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n, v = conf["batch_size"], 8
+    h, w = conf["data"]["image_size"]
+    poses = np.tile(np.eye(4, dtype=np.float32), (n, v, 1, 1))
+    poses[:, :, :3, 3] = rng.uniform(-1, 1, (n, v, 3)) * [0.6, 0.1, 1.5]
+    proj = np.array([[0.785, 0, -0.031], [0, 2.939, 0.270], [0, 0, 1]],
+                    dtype=np.float32)
+    return {"imgs": rng.uniform(-1, 1, (n, v, h, w, 3)).astype(np.float32),
+            "poses": poses,
+            "projs": np.broadcast_to(proj, (n, v, 3, 3)).copy()}
+
+
+def train_graph_phase(dev, card: str, config: str = TRAIN_GRAPH_CONFIG,
+                      flips=TRAIN_GRAPH_FLIPS,
+                      timed_from: int = TRAIN_GRAPH_TIMED_FROM) -> dict:
+    """Phase 30 (see TRAIN_GRAPH_FLIPS): a trainer of `config` in bf16,
+    initialised from the config's seed, runs a micro-step per flip on
+    batches and draws of their own, three times from that state: the
+    encoder eager, from its training graphs, eager again. Against the
+    first eager run: each step's loss, every parameter's gradient after
+    each backward pass (before the update), every parameter and BatchNorm
+    buffer after the last step; the second eager run shows what differs
+    between two eager runs. Raises unless the graph run captured once
+    (one pair serves both flips) and replayed every step, where a loss is
+    not finite, where a step before the first update differs from the
+    eager one, or where a gap from the first eager run is over
+    TRAIN_GRAPH_SLACK times the second eager run's. Returns the
+    record."""
+    import dataclasses
+    import math
+    import statistics
+    import torch
+    from behindthescenes_tpu_torch import tracing
+    from behindthescenes_tpu_torch import train as train_cli
+    from behindthescenes_tpu_torch.models import bts
+
+    conf = train_cli.config(config,
+                            overrides=("model_conf.encoder.pretrained=false",))
+    steps = []
+    for i, flip in enumerate(flips):
+        batch = k360_train_batch(conf, i)
+        draws = dataclasses.replace(numpy_draws(conf, batch, i), flip=flip)
+        steps.append(on_device(batch, draws, dev))
+
+    def run(graph: bool) -> dict:
+        takes = bts.takes_train_graph
+        if not graph:
+            bts.takes_train_graph = lambda *args: False
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            trainer = make_trainer(conf, None, dev, torch.bfloat16)
+            params = dict(trainer.net.named_parameters())
+            tracing.reset(TRAIN_GRAPH_COUNTERS)
+            losses, grads, bufs, ms = [], [], [], []
+            clock = cuda_clock()
+            for tb, td in steps:
+                events = [("start", clock())]
+
+                def mark(name):
+                    events.append((name, clock()))
+                    if name == "backward":
+                        grads.append({n: p.grad.clone()
+                                      for n, p in params.items()
+                                      if p.grad is not None})
+                losses.append(trainer.train_step(tb, td, mark=mark)["loss"])
+                bufs.append([b.clone() for b in trainer.net.buffers()])
+                ms.append(events)
+            torch.cuda.synchronize()
+            counted = tracing.counters()
+            split = {"step": [], "encode_backward": []}
+            for events in ms[timed_from:]:
+                at = dict(events)
+                split["step"].append(at["start"].elapsed_time(
+                    at["optimizer"]))
+                split["encode_backward"].append(
+                    at["start"].elapsed_time(at["encode"])
+                    + at["loss"].elapsed_time(at["backward"]))
+            return {"losses": [float(x) for x in losses], "grads": grads,
+                    "step_buffers": bufs,
+                    "params": {n: p.detach().clone()
+                               for n, p in params.items()},
+                    "buffers": {n: b.clone() for n, b in
+                                trainer.net.encoder.named_buffers()},
+                    "counters": {c: counted.get(c, 0)
+                                 for c in TRAIN_GRAPH_COUNTERS},
+                    "ms": {k: statistics.median(v)
+                           for k, v in split.items()},
+                    "memory": {"allocated": torch.cuda.memory_allocated()
+                               - base,
+                               "max_allocated":
+                               torch.cuda.max_memory_allocated() - base,
+                               "reserved": torch.cuda.memory_reserved()}}
+        finally:
+            bts.takes_train_graph = takes
+
+    def gaps(got: dict, want: dict) -> dict:
+        """Largest differences of `got` from `want`: absolute, and over
+        the largest magnitude of the reference tensor."""
+        def worst(pairs):
+            out = {"abs": 0.0, "rel": 0.0, "at": None, "differ": 0}
+            for name, a, b in pairs:
+                d = (a.double() - b.double()).abs()
+                top = float(d.max()) if d.numel() else 0.0
+                scale = float(b.double().abs().max()) if b.numel() else 0.0
+                out["differ"] += int((d > 0).sum())
+                if top > out["abs"]:
+                    out.update({"abs": top, "at": name,
+                                "rel": top / scale if scale else top})
+            return out
+        if [set(g) for g in got["grads"]] != \
+                [set(g) for g in want["grads"]]:
+            raise AssertionError("training graph: gradients of different "
+                                 "parameters than the eager steps")
+
+        def grads(keep):
+            return worst((f"step {i} {n}", g[n], w[n])
+                         for i, (g, w) in enumerate(zip(got["grads"],
+                                                        want["grads"]))
+                         for n in w if keep(n))
+
+        def params(keep):
+            return worst((n, got["params"][n], t)
+                         for n, t in want["params"].items() if keep(n))
+
+        def encoder(n):
+            return n.startswith("encoder.")
+        return {
+            "loss": max(abs(a - b) / abs(b) for a, b in
+                        zip(got["losses"], want["losses"])),
+            "grads": grads(lambda n: True),
+            "params": params(lambda n: True),
+            "encoder_grads": grads(encoder),
+            "encoder_params": params(encoder),
+            "buffers": worst((n, got["buffers"][n], t)
+                             for n, t in want["buffers"].items()
+                             if t.is_floating_point()),
+            "batches_tracked": all(
+                torch.equal(got["buffers"][n], t)
+                for n, t in want["buffers"].items()
+                if not t.is_floating_point())}
+
+    t = time.perf_counter()
+    eager = run(False)
+    graph = run(True)
+    again = run(False)
+    want = {c: 0 for c in TRAIN_GRAPH_COUNTERS}
+    want.update({"encoder_graph.train_captures": 1,
+                 "encoder_graph.train_replays": len(flips)})
+    if graph["counters"] != want:
+        raise AssertionError(f"training graph: counters "
+                             f"{graph['counters']}, want {want}")
+    if any(v for v in eager["counters"].values()):
+        raise AssertionError("training graph: the eager run counted "
+                             f"{eager['counters']}")
+    losses = eager["losses"] + graph["losses"] + again["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training graph: losses {losses}")
+    # Until the first update the parameters are the initial ones, and the
+    # forward pass has no atomics: each loss and every buffer after each
+    # step bit-equal to the eager run's. The gradients, and what follows
+    # an update, differ as two eager runs do (the render's backward
+    # scatters with atomics).
+    first = conf["accumulate_steps"]
+    for i in range(first):
+        if graph["losses"][i] != eager["losses"][i] or not all(
+                torch.equal(a, b) for a, b in zip(graph["step_buffers"][i],
+                                                  eager["step_buffers"][i])):
+            raise AssertionError(f"training graph: step {i} (before the "
+                                 "first update) differs from the eager step")
+    off, noise = gaps(graph, eager), gaps(again, eager)
+    out = {"card": card, "config": config, "flips": list(flips),
+           "exact_before_update": first,
+           "losses": {"eager": eager["losses"], "graph": graph["losses"]},
+           "graph_vs_eager": off, "eager_vs_eager": noise,
+           "counters": graph["counters"],
+           "memory_bytes": {"eager": eager["memory"],
+                            "graph": graph["memory"]},
+           "median_ms": {"eager": eager["ms"], "graph": graph["ms"]}}
+    print(f"[chip_smoke] training encoder graph ({card}): "
+          + json.dumps({k: out[k] for k in (
+              "graph_vs_eager", "eager_vs_eager", "counters",
+              "memory_bytes", "median_ms")}), flush=True)
+    for k in ("grads", "params", "encoder_grads", "encoder_params",
+              "buffers"):
+        if off[k]["abs"] > TRAIN_GRAPH_SLACK * noise[k]["abs"]:
+            raise AssertionError(
+                f"training graph: {k} {off[k]['abs']:.3g} from the eager "
+                f"run (at {off[k]['at']}), over {TRAIN_GRAPH_SLACK} x "
+                f"{noise[k]['abs']:.3g} between two eager runs")
+    log("phase 30 training encoder graph", f"{len(flips)} micro-steps "
+        "eager, from the graphs and eager again", t)
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3940,6 +4169,9 @@ def main() -> None:
     # -- 29: the inference encode from CUDA graphs -------------------------
     encoder_graphs = encoder_graph_phase(dev, card)
 
+    # -- 30: the training encode from its pair of CUDA graphs --------------
+    train_graphs = train_graph_phase(dev, card)
+
     print(json.dumps({"frame_ms": frame_ms, "encode_ms": encode_ms,
                       "serving": serving, "general_path": general["means"],
                       "train_parity": parity, "training": training,
@@ -3950,7 +4182,8 @@ def main() -> None:
                       "tile_fetch": tile_res, "demos": demos,
                       "parallel": parallel, "extra_data": extra,
                       "spatial": spatial, "k360_eval": k360_eval,
-                      "videos": videos, "encoder_graph": encoder_graphs}),
+                      "videos": videos, "encoder_graph": encoder_graphs,
+                      "train_encoder_graph": train_graphs}),
           flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
